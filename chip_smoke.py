@@ -4,24 +4,31 @@
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card, drives the main
-path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz, 3.5x, capacity
-factor 1.33, per-utterance gain) and checks it against the same call
-through the plain versions, then runs the dryrun sweep cases (0.7x with a
-ragged length; 22.05 kHz 3.0x). Prints one line per phase, a JSON line of
-the kernels' launches, errors and times, the card's name and power limit,
-and last {"ok": true, "device": {...}}. Any failed check raises, so the
-exit code is non-zero and no result line is printed. Imports neither JAX
-nor the JAX package.
+each kernel against its plain PyTorch version on the card, and drives the
+port's two paths, each against the same call through the plain versions:
+  - the batched path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz,
+    3.5x, capacity factor 1.33, per-utterance gain), then the dryrun sweep
+    cases (0.7x with a ragged length; 22.05 kHz 3.0x);
+  - the single-utterance grid pipeline (pipeline.nonlinear_speedup on 60 s
+    at 16 kHz, 3.5x; linear_time_scale at 44.1 kHz, 2.0x and the 1.0x
+    pass-through; time_scale_grid with a speed ceiling against without
+    one), and its CLI in a subprocess against the same call in process.
+Prints one line per phase, a JSON line of the kernels' launches, errors
+and times, the card's name and power limit, and last
+{"ok": true, "device": {...}}. Any failed check raises, so the exit code
+is non-zero and no result line is printed. Imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,7 +41,12 @@ KERNEL_SOURCES = {
                   "speedy_tpu/ops/pallas_kernels.py:1235"),
     "gather_synth": ("speedy_tpu_torch/csrc/synth.cu",
                      "speedy_tpu/ops/pallas_kernels.py:653"),
+    "gather_rows": ("speedy_tpu_torch/csrc/gather_rows.cu",
+                    "speedy_tpu/ops/pallas_kernels.py:121"),
 }
+# The batched path's kernels; the single-utterance path runs pitch_ssd and
+# gather_rows.
+BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
 CORR = ("pitch_ea", "pitch_es", "pitch_inv", "pitch_band")
 STEP_WINDOWS, STEPS_PER_WINDOW = 5, 10
 
@@ -396,6 +408,246 @@ def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res,
                 own_mean_abs_err=float(d_own.mean()))
 
 
+# ---------------------------------------------------------------------------
+# Kernel 4 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def recorded_call(module, name, run):
+    """The positional arguments of the first call of module.name while
+    run() runs (the call itself goes through)."""
+    calls = []
+    orig = getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    check(bool(calls), name, "was not called")
+    return calls[0]
+
+
+def gather_case(xs, cfg, rate, seed):
+    """Kernel 4's inputs as the per-row synthesis builds them for xs [B, L]
+    at about `rate`: the source padded by max_period in front and
+    3*max_period + 2*hop behind, monotone chunk starts (synth_case) offset
+    by the front pad, K from plan_grid at min_speed_bound 1.0, and n_valid
+    = valid // hop + 2 for valid lengths around L / rate."""
+    import torch
+    from speedy_tpu_torch.ops import wsola_fast
+
+    B, L = xs.shape
+    maxp = cfg.wsola_max_period
+    hop, _, K = wsola_fast.plan_grid(cfg, L, 1.0)
+    src = torch.nn.functional.pad(xs, (maxp, 3 * maxp + 2 * hop))
+    a_i, _, _, _ = synth_case(B, L, hop, K, rate, seed, xs.device)
+    rng = np.random.default_rng(seed)
+    valid = (L / rate * rng.uniform(0.9, 1.1, B)).astype(np.int64)
+    n_valid = np.minimum(valid // hop + 2, K).astype(np.int32)
+    return (src.contiguous(), (a_i + maxp).contiguous(), 2 * hop + 1,
+            torch.as_tensor(n_valid, device=xs.device))
+
+
+def check_gather_rows(kernels, args, label):
+    import torch
+
+    src, starts, width, n_valid = args
+    rows_k = kernels.gather_rows(src, starts, width, n_valid)
+    rows_p = kernels.gather_rows_reference(src, starts, width, n_valid)
+    torch.cuda.synchronize()
+    check(rows_k.shape == rows_p.shape, label, "shape", tuple(rows_k.shape))
+    err = float((rows_k - rows_p).abs().max())
+    # A copy: exactly equal, the zero rows past n_valid included.
+    check(torch.equal(rows_k, rows_p), label, "rows differ", err)
+    ms = time_ms(lambda: kernels.gather_rows(src, starts, width, n_valid))
+    plain_ms = time_ms(lambda: kernels.gather_rows_reference(src, starts, width, n_valid))
+    B, K = starts.shape
+    emit("kernel", kernel="gather_rows", shape=label, B=B, K=K, width=width,
+         L=src.shape[1], rows_valid=int(n_valid.clamp(max=K).sum()), max_abs_err=err,
+         ms=ms, plain_ms=plain_ms, output_MB=rows_k.numel() * 4 / 1e6)
+    return err, ms, plain_ms
+
+
+# ---------------------------------------------------------------------------
+# The single-utterance path against the plain path
+# ---------------------------------------------------------------------------
+
+
+def compare_single(kernels, testutil, wsola_fast, x, cfg, res, plain, label, dev):
+    """The kernel path's SpeedupResult `res` for one utterance x [L]
+    (float32) against the same call through the plain versions, `plain`:
+      - equal valid lengths; tension within 2e-5 except at 40 dB mask-edge
+        frames;
+      - the plain path fed the kernel path's pitch grid and speeds gives
+        max|d| < 2e-3 outside the output slots of chunks whose phase snap
+        or pitch cell rounds differently in the two paths, found with
+        grid_positions (under 0.1% of the live chunks);
+      - with its own pitch grid: the two grids pass the pitch gate (every
+        integer flip a float64 SSD tie, under 0.5% of the cells whose
+        integer lag agrees parting by more than 0.1 sample), and max|d| <
+        2e-3 outside the slots of chunks whose position the two grids
+        move. A chunk's position c_0 + k*hop - snap*P multiplies a period
+        difference by its snap count, thousands of periods into a long
+        utterance, so on 60 s most late chunks move and the share of
+        samples off by more than 1e-3 is reported, not gated."""
+    import torch
+
+    n = len(res.output)
+    check(len(plain.output) == n, label, "valid_length differs", len(plain.output), n)
+    dt = np.abs(plain.tension - res.tension)
+    edges = 0
+    for t in np.flatnonzero(dt > 2e-5):
+        m = mask_edge_margins(x, cfg, [int(t)])[0]
+        check(m < 1e-4, label, "tension outlier not at a mask edge", t, float(dt[t]), m)
+        edges += 1
+    minp, maxp = cfg.wsola_min_period, cfg.wsola_max_period
+    hop = wsola_fast.default_hop(cfg)
+    G = wsola_fast.pitch_grid_stride(cfg)
+    n_grid = -(-(len(x) + 2 * maxp) // G)
+    xt = torch.as_tensor(x, device=dev)
+    one = torch.ones(1, device=dev)
+    corr = tuple(torch.as_tensor(m, device=dev) for m in wsola_fast.pitch_corr_matrices(cfg))
+    grid = kernels.pitch_ssd(xt[None], one, maxp, minp, maxp, G, n_grid, corr)
+    msb = max(0.01, float(res.speeds.min()) * 0.999)
+    fed = wsola_fast.time_scale_grid(xt, res.speeds, cfg, min_speed_bound=msb,
+                                     device=dev, period_grid=grid[0], reference=True)
+    check(int(fed.valid_length) == n, label, "fed valid_length")
+    y = np.asarray(res.output, np.float32)
+    d_fed = np.abs(fed.output[:n].cpu().numpy() - y)
+    K = n // hop + 2
+    lens = torch.tensor([len(x)], dtype=torch.int32, device=dev)
+
+    def positions(r, g):
+        return wsola_fast.grid_positions(
+            lens, torch.as_tensor(r.speeds, device=dev)[None], g, cfg.frame_step_int,
+            hop, G, K * hop, K)
+
+    def slots(chunks):  # chunk k feeds output slots k and k+1
+        touched = chunks.copy()
+        touched[1:] |= chunks[:-1]
+        return np.repeat(touched, hop)[:n]
+
+    live = n // hop + 1
+    pk, pp = positions(res, grid), positions(plain, grid)
+    tipped = ((pk.cell != pp.cell) | (pk.snap != pp.snap))[0, :live].cpu().numpy()
+    near = slots(tipped)
+    far_max = float(d_fed[~near].max()) if (~near).any() else 0.0
+    check(far_max < 2e-3, label, "fed-grid path max|d| outside tipped chunks", far_max)
+    check(tipped.sum() < max(1.0, 1e-3 * live), label, "tipped chunks", int(tipped.sum()))
+
+    # The plain path's own grid against the kernel's.
+    grid_p = kernels.pitch_ssd_reference(xt[None], one, maxp, minp, maxp, G, n_grid, corr)
+    g_k, g_p = grid.cpu().numpy(), grid_p.cpu().numpy()
+    dg = np.abs(g_k - g_p)
+    flips = dg > 0.5
+    same_lag_off = float(np.mean((dg > 0.1) & ~flips))
+    check(same_lag_off < 0.005, label, "pitch cells off by > 0.1 sample", same_lag_off)
+    xp = np.zeros((1, n_grid * G), np.float32)
+    xp[0, : len(x)] = x
+    testutil.assert_period_flips_are_ties(
+        xp.reshape(1, n_grid, G)[:, :, : 2 * maxp], g_p, g_k, maxp, minp, maxp)
+    moved = (pk.a != positions(plain, grid_p).a)[0, :live].cpu().numpy()
+    d_own = np.abs(np.asarray(plain.output, np.float32) - y)
+    still = ~slots(moved)
+    own_far_max = float(d_own[still].max()) if still.any() else 0.0
+    check(own_far_max < 2e-3, label, "own-grid path max|d| outside moved chunks", own_far_max)
+    return dict(valid_length=n, tension_max_abs_err=float(dt.max()) if dt.size else 0.0,
+                tension_mask_edge_frames=edges, path_fed_max_abs_err=float(d_fed.max()),
+                path_fed_max_abs_err_outside_tipped=far_max,
+                path_fed_tipped_chunks=int(tipped.sum()), pitch_cells=n_grid,
+                pitch_integer_flips=int(flips.sum()), pitch_same_lag_off_0p1=same_lag_off,
+                pitch_max_abs_diff=float(dg.max()), own_chunks=live,
+                own_moved_chunks=int(moved.sum()), own_max_abs_err_outside_moved=own_far_max,
+                own_share_over_1e3=float((d_own > 1e-3).sum()) / max(n, 1),
+                own_max_abs_err=float(d_own.max()))
+
+
+def path_launches(kernels, run):
+    """run() with every launch count set to 0 just before; the counts just
+    after, and run()'s result."""
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES), out
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host wall time of fn() in ms, each call ending in a
+    synchronize (after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def single_split_ms(x, cfg, rate, dev):
+    """Host wall ms (median of 5) of one nonlinear_speedup call on x and of
+    its three parts: analysis, the sequential speed law, and the grid
+    engine (time_scale_grid, with the read-back of its output)."""
+    import torch
+    from speedy_tpu_torch import pipeline
+    from speedy_tpu_torch.ops import analysis, speed, wsola_fast
+
+    xt = torch.as_tensor(x, device=dev)
+    tension = analysis.analyze(xt, cfg, integer_step=True).tension
+    speeds = speed.speed_from_tension(tension[None], rate, 0.1, 1.0)[0][0]
+    msb = max(0.01, float(speeds.min()) * 0.999)
+    return {
+        "call": host_ms(lambda: pipeline.nonlinear_speedup(
+            x, cfg, rate, 1.0, 0.1, engine="grid", device=dev)),
+        "analysis": host_ms(lambda: analysis.analyze(xt, cfg, integer_step=True)),
+        "speed_law": host_ms(lambda: speed.speed_from_tension(tension[None], rate, 0.1, 1.0)),
+        "engine": host_ms(lambda: wsola_fast.time_scale_grid(
+            xt, speeds, cfg, min_speed_bound=msb, device=dev).output.cpu()),
+    }
+
+
+def run_cli_phase(pipeline, wave, cfg, x, dev):
+    """The CLI in a subprocess on a WAV of x against nonlinear_speedup on
+    the same samples in process: equal samples, equal printed rate."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        wave.write_wave(src, x, cfg.sample_rate)
+        samples, _ = wave.read_wave(src)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "speedy_tpu_torch.cli", "--engine", "grid",
+             "--device", "cuda", "-s", "3.0", "-i", src, "-o", dst],
+            cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600,
+        )
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "cli exit", proc.returncode, proc.stderr[-2000:])
+        y_cli, sr = wave.read_wave(dst)
+    y_in = pipeline.nonlinear_speedup(samples, cfg, 3.0, 1.0, 0.1, engine="grid",
+                                      device=dev).output
+    check(sr == cfg.sample_rate and y_cli.shape == y_in.shape, "cli shape",
+          y_cli.shape, y_in.shape)
+    check(np.array_equal(y_cli, y_in), "cli samples differ from the pipeline's",
+          int(np.abs(y_cli.astype(np.int32) - y_in).max()))
+    rate = f"{len(samples) / len(y_in):.4f}"
+    check(f"Achieved overall compression: {rate}x." in proc.stdout, "cli rate",
+          proc.stdout[-500:], rate)
+    return dict(samples_in=len(samples), samples_out=len(y_cli), achieved_rate=rate,
+                subprocess_s=wall_s, stdout_last=proc.stdout.strip().splitlines()[-1])
+
+
+
 def main() -> int:
     try:
         import torch
@@ -411,8 +663,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))  # testutil: numpy-only checks
     import testutil
-    from speedy_tpu_torch import SpeedupEngine, SpeedyConfig
-    from speedy_tpu_torch.ops import _build, kernels
+    from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline
+    from speedy_tpu_torch.io import wave
+    from speedy_tpu_torch.ops import _build, kernels, wsola_fast
     from speedy_tpu_torch.parallel import batch
 
     # ---- 1. device ----
@@ -459,8 +712,22 @@ def main() -> int:
     results["gather_synth"] = check_synth(
         kernels, xs16, gain16, 160, 383, 3.5, "hop=160 B=128 K=383")
     check_synth(kernels, xs22, gain22, 220, 400, 3.0, "hop=220 B=8 K=400")
-    xs44 = torch.as_tensor(batch_of(bench_families(441000, 44100), 4), device=dev)
+    fam44 = bench_families(441000, 44100)
+    xs44 = torch.as_tensor(batch_of(fam44, 4), device=dev)
     check_synth(kernels, xs44, gain22[:4].contiguous(), 441, 400, 3.0, "hop=441 B=4 K=400")
+    # Kernel 4 at the single-utterance path's own shape (its arguments
+    # recorded from one nonlinear_speedup call on 60 s), then at two batch
+    # shapes large enough to time.
+    cfg44 = SpeedyConfig(44100)
+    x60 = bench_families(60 * 16000, 16000)[0]
+    path_args = recorded_call(kernels, "gather_rows", lambda: pipeline.nonlinear_speedup(
+        x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
+    results["gather_rows"] = check_gather_rows(
+        kernels, path_args, "path: 16kHz B=1 60s 3.5x")
+    check_gather_rows(kernels, gather_case(xs16, cfg16, 3.5, 5), "16kHz B=128 L=160000 3.5x")
+    xs44b = torch.as_tensor(batch_of(fam44, 16), device=dev)
+    check_gather_rows(kernels, gather_case(xs44b, cfg44, 3.5, 6), "44.1kHz B=16 L=441000 3.5x")
+    del xs44b
 
     # ---- 4. the main path ----
     rate, cap_factor = 3.5, 1.33
@@ -471,7 +738,8 @@ def main() -> int:
     res = engine(xs16, lengths, gain16)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    check(all(n > 0 for n in launches.values()), "main path skipped a kernel", launches)
+    check(all(launches[k] > 0 for k in BATCH_KERNELS) and launches["gather_rows"] == 0,
+          "main path skipped a kernel or left its route", launches)
     capacity = res.output.shape[1]
     check(capacity == batch.grid_output_capacity(cfg16, L, rate, cap_factor), "capacity")
     max_valid = int(res.valid_length.max())
@@ -527,13 +795,80 @@ def main() -> int:
         out = batch.batched_nonlinear_speedup(x_t, l_t, cfg, r, 1.0, 0.1)
         torch.cuda.synchronize()
         swept = dict(kernels.LAUNCHES)
-        check(all(n > 0 for n in swept.values()), label, "skipped a kernel", swept)
+        check(all(swept[k] > 0 for k in BATCH_KERNELS) and swept["gather_rows"] == 0,
+              label, "skipped a kernel or left its route", swept)
         check(bool((out.valid_length > 0).all()), label, "empty output")
         check(bool(torch.isfinite(out.output).all()), label, "non-finite output")
         cmp = compare_paths(batch, kernels, x_t, l_t, None, cfg, r, None, out, label)
         emit("sweep", case=label, launches=swept,
              checksum=float(out.output.double().sum()), **cmp)
 
+    # ---- 6. the single-utterance grid pipeline ----
+    l_nl, res_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
+        x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
+    check(l_nl["gather_rows"] >= 1 and l_nl["pitch_ssd"] >= 1,
+          "single nonlinear skipped a kernel", l_nl)
+    check(l_nl["gather_synth"] == 0 and l_nl["analysis_energy_lsd"] == 0,
+          "single nonlinear left its route", l_nl)
+    check(np.all(np.isfinite(res_nl.output)) and res_nl.tension.shape[0] > 0,
+          "single nonlinear output")
+    l_pl, plain_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
+        x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev, reference=True))
+    check(not any(l_pl.values()), "the plain path launched a kernel", l_pl)
+    cmp = compare_single(kernels, testutil, wsola_fast, x60, cfg16, res_nl, plain_nl,
+                         "single nonlinear", dev)
+    wall = single_split_ms(x60, cfg16, 3.5, dev)
+    emit("single", case="nonlinear 16kHz 60s 3.5x", launches=l_nl,
+         achieved_rate=res_nl.achieved_rate, wall_ms=wall,
+         audio_s_per_s=60.0 / (wall["call"] / 1e3), tension_frames=len(res_nl.tension),
+         checksum=float(res_nl.output.astype(np.float64).sum()), **cmp)
+
+    x44 = bench_families(30 * 44100, 44100)[0]
+    l_li, res_li = path_launches(kernels, lambda: pipeline.linear_time_scale(
+        x44, cfg44, 2.0, engine="grid", device=dev))
+    check(l_li["gather_rows"] >= 1 and l_li["pitch_ssd"] >= 1
+          and l_li["gather_synth"] == 0, "single linear route", l_li)
+    plain_li = pipeline.linear_time_scale(x44, cfg44, 2.0, engine="grid", device=dev,
+                                          reference=True)
+    cmp = compare_single(kernels, testutil, wsola_fast, x44, cfg44, res_li, plain_li,
+                         "single linear", dev)
+    # 1.0x pass-through: the int16 input back within 1 LSB
+    # (tests/test_wsola.py:122-127).
+    x44i = np.clip(np.round(x44 * 32768.0), -32768, 32767).astype(np.int16)
+    same = pipeline.linear_time_scale(x44i, cfg44, 1.0, engine="grid", device=dev).output
+    check(same.shape == x44i.shape, "pass-through length", same.shape)
+    lsb = int(np.abs(same.astype(np.int32) - x44i.astype(np.int32)).max())
+    check(lsb <= 1, "pass-through off by", lsb)
+    emit("single", case="linear 44.1kHz 30s 2.0x", launches=l_li,
+         achieved_rate=res_li.achieved_rate,
+         wall_ms=host_ms(lambda: pipeline.linear_time_scale(
+             x44, cfg44, 2.0, engine="grid", device=dev)),
+         passthrough_1x_max_lsb=lsb, **cmp)
+
+    # A speed ceiling routes synthesis to kernel 3; without one, kernel 4.
+    speeds = torch.as_tensor(res_nl.speeds, device=dev)
+    check(float(speeds.max()) < 6.6, "speeds above the ceiling", float(speeds.max()))
+    msb = max(0.01, float(speeds.min()) * 0.999)
+    l_b, r_b = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
+        x60, speeds, cfg16, min_speed_bound=msb, max_speed_bound=6.6, device=dev))
+    l_u, r_u = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
+        x60, speeds, cfg16, min_speed_bound=msb, device=dev))
+    check(l_b["gather_synth"] >= 1 and l_b["gather_rows"] == 0, "bounded route", l_b)
+    check(l_u["gather_rows"] >= 1 and l_u["gather_synth"] == 0, "unbounded route", l_u)
+    check(int(r_b.valid_length) == int(r_u.valid_length), "bounded valid_length")
+    d_b = float((r_b.output - r_u.output).abs().max())
+    check(d_b < 1e-6, "bounded against unbounded", d_b)
+    emit("single", case="bounded 16kHz 60s, the 3.5x run's speeds, ceiling 6.6",
+         launches_bounded=l_b, launches_unbounded=l_u, valid_length=int(r_b.valid_length),
+         max_abs_err=d_b)
+
+    # ---- 7. the CLI ----
+    emit("cli", **run_cli_phase(pipeline, wave, cfg16,
+                                bench_families(20 * 16000, 16000)[0], dev))
+
+    # Launches: the batched path's run for its kernels, the single
+    # nonlinear run for kernel 4.
+    launches["gather_rows"] = l_nl["gather_rows"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": results[name][0],

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Every `speedy_tpu_torch/csrc/*.cu` is compiled by nvcc, at first use, into
-one shared library with a plain C interface, which ctypes loads:
+one shared library with a plain C interface, which ctypes loads. Each
+source compiles in its own nvcc process, all started together, and one
+more links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o libspeedy_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o libspeedy_kernels.so *.o
 
 The library lands in `speedy_tpu_torch/_build/<hash>/`, keyed on a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
@@ -30,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libspeedy_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +44,7 @@ _SIGNATURES = {
     "speedy_analysis_energy_lsd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "speedy_pitch_ssd": [_P] * 3 + [_I] * 7 + [_P],
     "speedy_gather_synth": [_P] * 7 + [_I] * 5 + [_P],
+    "speedy_gather_rows": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -81,21 +85,33 @@ def build() -> pathlib.Path:
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name and rename: a concurrent build of the same
-    # hash then never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    # Build in a private directory and rename the library into place: a
+    # concurrent build of the same hash then never loads a half-written one.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for cmd in cmds
+        ]
+        outs = [proc.communicate()[0] for proc in procs]  # waits for every one
+        log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+        failed = [cmd[-1] for cmd, proc in zip(cmds, procs) if proc.returncode != 0]
+        if not failed:
+            link = [nvcc, "-shared", "-o", os.path.join(tmp, LIB_NAME), *objs]
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log += " ".join(link) + "\n" + proc.stdout
+            if proc.returncode != 0:
+                failed = ["link"]
+        (out_dir / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        os.replace(os.path.join(tmp, LIB_NAME), lib)
     return lib
 
 

@@ -1,11 +1,14 @@
-"""Analysis DFT tables: the Hamming window and the real-DFT basis.
+"""Analysis DFT: the Hamming window, the real-DFT basis and the magnitude
+spectrogram (port of speedy_tpu/ops/dft.py).
 
-Built in float64 with numpy and cast once, with the same recipe as
-speedy_tpu/ops/dft.py, so the two packages' tables are bitwise equal
+The tables are built in float64 with numpy and cast once, with the same
+recipe as the JAX package, so the two packages' tables are bitwise equal
 (tests/test_torch_config.py). The reference zero-pads a Hamming-windowed
 frame of W samples to 2W and takes a complex FFT (speedy.c:438-474); for
 real input only bins 0..W are distinct, so the transform is a product
-with a [W, W+1] cosine and a [W, W+1] minus-sine basis.
+with a [W, W+1] cosine and a [W, W+1] minus-sine basis. The JAX package
+leaves that product to XLA, outside any Pallas kernel; here it is
+torch.matmul, in full float32 (no_tf32).
 """
 
 from __future__ import annotations
@@ -13,6 +16,17 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+
+from ..config import SpeedyConfig
+
+
+def no_tf32() -> None:
+    """Full float32 for every matmul and convolution on the card (the
+    analysis DFT and the plain pitch search need it; TF32 keeps about
+    three decimal digits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @functools.lru_cache(maxsize=16)
@@ -34,3 +48,26 @@ def dft_matrices(window_size: int, dtype: str = "float32"):
     k = np.arange(window_size + 1, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * k * n / (2.0 * window_size)
     return np.cos(ang).astype(dtype), (-np.sin(ang)).astype(dtype)
+
+
+def magnitude_spectrogram(frames: torch.Tensor, cfg: SpeedyConfig) -> torch.Tensor:
+    """|DFT| of Hamming-windowed, zero-padded frames: [..., T, W] ->
+    [..., T, W+1], bins 0..fft_size/2 of speedySpectrogram
+    (speedy.c:438-454)."""
+    dt, dev = frames.dtype, frames.device
+    name = str(dt).removeprefix("torch.")
+    win = torch.as_tensor(hamming_window(cfg.window_size, name), device=dev)
+    cos_m, sin_m = (
+        torch.as_tensor(m, device=dev) for m in dft_matrices(cfg.window_size, name)
+    )
+    fw = frames * win
+    re = torch.matmul(fw, cos_m)
+    im = torch.matmul(fw, sin_m)
+    return torch.sqrt(re * re + im * im)
+
+
+def full_magnitude(half: torch.Tensor, cfg: SpeedyConfig) -> torch.Tensor:
+    """Bins [..., W+1] -> the reference's full fft_size array
+    (speedy.c:450-452 stores all 2W bins; the upper half mirrors 1..W-1)."""
+    W = cfg.window_size
+    return torch.cat([half[..., : W + 1], half[..., 1:W].flip(-1)], dim=-1)

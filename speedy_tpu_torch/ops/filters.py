@@ -45,12 +45,15 @@ def _power_matrices(alpha: float, n_chunks: int):
 def first_order_lowpass(
     x: torch.Tensor, alpha: float, initial_state: float
 ) -> torch.Tensor:
-    """y[t] = α·y[t-1] + (1-α)·x[t] along the last axis of x [B, T], with
-    y[-1] = initial_state (IterateFirstOrderFilter, speedy.c:73-76, seeded
-    via SetFirstOrderFilterState, speedy.c:82-84,287-292)."""
-    B, T = x.shape
+    """y[t] = α·y[t-1] + (1-α)·x[t] along the last axis of x [..., T],
+    with y[-1] = initial_state (IterateFirstOrderFilter, speedy.c:73-76,
+    seeded via SetFirstOrderFilterState, speedy.c:82-84,287-292)."""
+    T = x.shape[-1]
     if T == 0:
         return x.clone()
+    lead_shape = x.shape[:-1]
+    x = x.reshape(-1, T)
+    B = x.shape[0]
     nC = -(-T // _CHUNK)
     dt, dev = x.dtype, x.device
     within, lead, across, init = (
@@ -64,4 +67,4 @@ def first_order_lowpass(
     local = torch.matmul(b.view(B, nC, _CHUNK), within.T)  # [B, nC, C]
     enter = torch.matmul(local[:, :, -1], across.T) + init * initial_state
     y = local + lead * enter[:, :, None]
-    return y.reshape(B, nC * _CHUNK)[:, :T]
+    return y.reshape(B, nC * _CHUNK)[:, :T].reshape(lead_shape + (T,))

@@ -1,11 +1,18 @@
-"""Analysis frame positions (the port's copy of speedy_tpu/ops/framing.py's
-frame_starts; the batched front-end builds frames from strided views)."""
+"""Framing and preemphasis (port of speedy_tpu/ops/framing.py).
+
+The reference carries preemphasis state across 50%-overlapped frames
+(speedy.c:416-425,540-551: the state entering frame t is the *raw* last
+sample of frame t-1). That state is a gather from the input waveform, so
+the whole stage is data-parallel over frames. Every function here works
+along the last axis of x, [L] or [B, L].
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..config import SpeedyConfig
+from ..config import PREEMPHASIS_COEF, SpeedyConfig
 
 
 def frame_starts(cfg: SpeedyConfig, num_frames: int, integer_step: bool = False) -> np.ndarray:
@@ -20,3 +27,30 @@ def frame_starts(cfg: SpeedyConfig, num_frames: int, integer_step: bool = False)
     if integer_step:
         return (t.astype(np.int64) * cfg.frame_step_int).astype(np.int32)
     return np.floor(t * cfg.frame_step_float + 0.5).astype(np.int32)
+
+
+def extract_frames(x: torch.Tensor, starts: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Overlapping frames x[..., L] -> [..., T, W], indices clamped to
+    [0, L) (jnp.take mode="clip")."""
+    idx = starts.to(x.device, torch.int64)[:, None] + torch.arange(
+        window_size, device=x.device
+    )
+    return x[..., idx.clamp(0, x.shape[-1] - 1)]
+
+
+def preemphasis_state(x: torch.Tensor, starts: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Raw sample carried into each frame's preemphasis, [..., T] (0 for
+    frame 0): x[start[t-1] + W - 1], the last raw sample of frame t-1
+    (speedy.c:422-423), not x[start[t] - 1]."""
+    prev_idx = starts.to(x.device, torch.int64)[:-1] + (window_size - 1)
+    prev = x[..., prev_idx.clamp(0, x.shape[-1] - 1)]
+    return torch.cat([x.new_zeros(x.shape[:-1] + (1,)), prev], dim=-1)
+
+
+def preemphasize(frames: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[i] - 0.97 * x[i-1] within each frame of frames [..., T, W],
+    with the carried state [..., T] as x[-1] (filter([1 -0.97], 1, x),
+    speedy.c:416-425)."""
+    prev = torch.cat([state[..., None], frames[..., :-1]], dim=-1)
+    coef = torch.tensor(PREEMPHASIS_COEF, dtype=frames.dtype, device=frames.device)
+    return frames - coef * prev

@@ -9,7 +9,12 @@ Four stages, every one parallel over utterances and output chunks:
      stride G (kernel 2, kernels.pitch_ssd), looked up per chunk.
   3. PHASE SNAP, closed form: a_k = c_k + wrap(c_0 + k*hop - c_k, P_k).
   4. SYNTHESIS: Hann-windowed chunks of width 2*hop gathered at fractional
-     a_k, overlap-added on the grid (kernel 3, kernels.gather_synth).
+     a_k, overlap-added on the grid. With a planner ceiling on speed
+     (max_speed_plan) one kernel does all of it (kernel 3,
+     kernels.gather_synth); without one, as from time_scale_grid, the
+     chunks' rows are gathered by kernel 4 (kernels.gather_rows) and
+     interpolated, windowed and overlap-added in torch, as the JAX
+     package's per-row route does.
 
 The tables here are built in float64 with numpy and cast once, with the
 same recipes as the JAX package, so both packages hold bitwise-equal
@@ -26,6 +31,7 @@ import torch
 
 from ..config import SpeedyConfig
 from . import kernels
+from .dft import no_tf32
 from .wsola import WsolaResult
 
 
@@ -215,24 +221,26 @@ def wsola_grid_batch(
     _wsola_grid_batch, single-shot form).
 
     cola [2*hop] is _cola_hann(2*hop); corr_mats are the plain pitch
-    search's tables. max_speed_plan clamps speeds to the planner's ceiling.
-    gain [B] scales each utterance's input. period_grid [B, n_grid]
-    (optional) replaces the pitch search; it must come from this G over
-    the same xs. reference=True runs the kernels' plain versions on any
-    device (for holding the kernels against them on the card).
+    search's tables. max_speed_plan clamps speeds to the planner's ceiling
+    and selects the fused synthesis (kernel 3); None selects the per-row
+    gather (kernel 4). gain [B] scales each utterance's input.
+    period_grid [B, n_grid] (optional) replaces the pitch search; it must
+    come from this G over the same xs. reference=True runs the kernels'
+    plain versions on any device (for holding the kernels against them on
+    the card).
     """
     B, L = xs.shape
     dt, dev = xs.dtype, xs.device
     maxp, minp = max_period, min_period
     taps = maxp
-    gain = torch.ones(B, dtype=dt, device=dev) if gain is None else gain.to(dt)
+    g = torch.ones(B, dtype=dt, device=dev) if gain is None else gain.to(dt)
 
     # ---- 2. pitch (it reads only xs, so it runs first) ----
     G = _grid_stride(hop, maxp)
     n_grid = -(-(L + taps + maxp) // G)
     if period_grid is None:
         pitch = kernels.pitch_ssd_reference if reference else kernels.pitch_ssd
-        period_grid = pitch(xs, gain, taps, minp, maxp, G, n_grid, corr_mats)
+        period_grid = pitch(xs, g, taps, minp, maxp, G, n_grid, corr_mats)
 
     # ---- 1 and 3. time map, phase snap ----
     pos = grid_positions(
@@ -243,8 +251,102 @@ def wsola_grid_batch(
     # ---- 4. synthesis ----
     a_i = torch.floor(pos.a).to(torch.int32)
     a_f = pos.a - a_i.to(dt)
-    synth = kernels.gather_synth_reference if reference else kernels.gather_synth
-    out = synth(xs, a_i, a_f, cola, gain, pos.valid, hop, capacity)
+    if max_speed_plan is None:
+        out = _synth_per_row(
+            xs, a_i, a_f, cola, gain, pos.valid, hop, capacity, maxp, reference
+        )
+    else:
+        synth = kernels.gather_synth_reference if reference else kernels.gather_synth
+        out = synth(xs, a_i, a_f, cola, g, pos.valid, hop, capacity)
     return WsolaResult(
         out, pos.valid, torch.full((B,), num_chunks, dtype=torch.int32, device=dev)
     )
+
+
+def _synth_per_row(
+    xs: torch.Tensor,
+    a_i: torch.Tensor,
+    a_f: torch.Tensor,
+    win: torch.Tensor,
+    gain: Optional[torch.Tensor],
+    valid: torch.Tensor,
+    hop: int,
+    capacity: int,
+    max_period: int,
+    reference: bool,
+) -> torch.Tensor:
+    """Synthesis without a speed ceiling (speedy_tpu/ops/wsola_fast.py:
+    593-626): the gain-scaled source padded by max_period in front, rows
+    of 2*hop + 1 samples gathered at a_i + pad (kernel 4) for the chunks
+    that reach the valid output, then linear interpolation, the COLA
+    window, the half-slot overlap-add with slot 0 unwindowed, and the
+    valid-length mask. Returns [B, capacity]."""
+    B = xs.shape[0]
+    K = a_i.shape[1]
+    pad_front = max_period
+    src = xs if gain is None else xs * gain.to(xs.dtype)[:, None]
+    # Back padding as the JAX package's: 2*maxp + taps + 2*hop, taps = maxp.
+    src_pad = torch.nn.functional.pad(src, (pad_front, 3 * max_period + 2 * hop))
+    # Rows past valid // hop + 1 feed only masked output.
+    valid_rows = torch.clamp(valid // hop + 2, max=K).to(torch.int32)
+    gather = kernels.gather_rows_reference if reference else kernels.gather_rows
+    wide = gather(src_pad, a_i + pad_front, 2 * hop + 1, valid_rows)
+    af = a_f[:, :, None]
+    raw = wide[:, :, :-1] * (1.0 - af) + wide[:, :, 1:] * af
+    rows = raw * win
+    slots = torch.cat([raw[:, :1, :hop], rows[:, 1:, :hop] + rows[:, :-1, hop:]], dim=1)
+    out = slots.reshape(B, K * hop)[:, :capacity]
+    keep = torch.arange(capacity, device=xs.device)[None, :] < valid[:, None]
+    return torch.where(keep, out, torch.zeros((), dtype=xs.dtype, device=xs.device))
+
+
+def time_scale_grid(
+    x,
+    speeds,
+    cfg: SpeedyConfig,
+    input_length: Optional[int] = None,
+    min_speed_bound: float = 0.25,
+    hop: Optional[int] = None,
+    capacity: Optional[int] = None,
+    max_speed_bound: Optional[float] = None,
+    *,
+    device,
+    period_grid: Optional[torch.Tensor] = None,
+    reference: bool = False,
+) -> WsolaResult:
+    """Grid-parallel time-scaling of one mono utterance x [L] (float32, a
+    tensor or an array) at per-frame speeds [F], on `device`.
+
+    max_speed_bound: optional planner ceiling on instantaneous speed
+    (speeds are clamped to it); selects the fused synthesis (kernel 3).
+    None keeps speeds unbounded and synthesis per row (kernel 4).
+    period_grid [n_grid] (optional) replaces the pitch search (see
+    wsola_grid_batch); reference=True runs the kernels' plain versions.
+    Returns WsolaResult with output [capacity] and 0-dim valid_length."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        no_tf32()
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    L = x.shape[-1]
+    if input_length is None:
+        input_length = L
+    h, cap, K = plan_grid(cfg, L, min_speed_bound, hop)
+    if capacity is not None:
+        cap, K = capacity, capacity // h + 1
+    res = wsola_grid_batch(
+        x[None, :],
+        torch.tensor([input_length], dtype=torch.int32, device=dev),
+        torch.as_tensor(speeds, dtype=torch.float32, device=dev).reshape(1, -1),
+        cfg.wsola_min_period,
+        cfg.wsola_max_period,
+        cfg.frame_step_int,
+        h,
+        cap,
+        K,
+        torch.as_tensor(_cola_hann(2 * h), device=dev),
+        tuple(torch.as_tensor(m, device=dev) for m in pitch_corr_matrices(cfg)),
+        max_speed_plan=max_speed_bound,
+        period_grid=None if period_grid is None else period_grid.reshape(1, -1),
+        reference=reference,
+    )
+    return WsolaResult(res.output[0], res.valid_length[0], res.steps_used[0])

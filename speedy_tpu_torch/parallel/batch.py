@@ -23,7 +23,8 @@ from torch import nn
 
 from .. import config as C
 from ..config import SpeedyConfig
-from ..ops import dft, filters, kernels, wsola, wsola_fast
+from ..ops import analysis, dft, kernels, wsola, wsola_fast
+from ..ops.dft import no_tf32
 from ..ops.speed import speed_from_tension, speed_from_tension_parallel
 
 TABLE_NAMES = (
@@ -39,12 +40,6 @@ class BatchResult(NamedTuple):
     valid_length: torch.Tensor  # [B] int32
     tension: torch.Tensor       # [B, T_out]
     speeds: torch.Tensor        # [B, T_out]
-
-
-def no_tf32() -> None:
-    """Full float32 for every matmul and convolution on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def build_tables(cfg: SpeedyConfig) -> Dict[str, np.ndarray]:
@@ -83,15 +78,14 @@ def batched_analysis(
     """Batched front-end: xs [B, L] -> tension [B, T_out].
 
     {energy, lsd} per frame come from kernel 1 (kernels.analysis_energy_lsd)
-    on the card; the rest is [B, T] tensor code: LPF, √min(2,·),
-    tapered-max hysteresis, the skip gate, the second LPF and tension
-    (speedy_tpu/parallel/batch.py:205-270). gain [B] scales each
+    on the card; the rest is the [B, T] tension chain of ops/analysis.py:
+    LPF, √min(2,·), tapered-max hysteresis, the skip gate, the second LPF
+    and tension (speedy_tpu/parallel/batch.py:205-270). gain [B] scales each
     utterance after the Hamming window. reference=True uses the kernel's
     plain version on any device.
     """
     B, L = xs.shape
     dt, dev = xs.dtype, xs.device
-    fut = cfg.hysteresis_future
     T = num_frames
     T_out = cfg.num_tension_frames(T)
     if T_out == 0:
@@ -106,49 +100,7 @@ def batched_analysis(
         xs, g, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
         tables["tw_cos"], tables["tw_sin"], T, cfg.frame_step_int,
     )
-    sig_energy = energy[:, :T_out]
-    lsd_t = lsd_full[:, :T_out]
-    zero = torch.zeros((), dtype=dt, device=dev)
-
-    energy_lp = filters.first_order_lowpass(
-        energy, cfg.lpf_alpha, C.MEAN_SPECTROGRAM_ENERGY
-    )
-    energy_compressed = torch.sqrt(torch.clamp(energy / energy_lp, max=2.0))
-
-    # Tapered-max hysteresis: frame t reads t-past .. t+fut.
-    future_max = xs.new_zeros(B, T_out)
-    for i in range(fut + 1):
-        if i >= T:  # whole window past the signal: zero contribution
-            continue
-        taper = (fut - i) / float(fut)
-        sl = energy_compressed[:, i : min(i + T_out, T)]
-        if sl.shape[1] < T_out:
-            sl = torch.cat([sl, xs.new_zeros(B, T_out - sl.shape[1])], dim=1)
-        future_max = torch.maximum(future_max, sl * taper)
-    past = cfg.hysteresis_past
-    past_max = xs.new_zeros(B, T_out)
-    for i in range(past + 1):
-        if i >= T_out:  # shift exceeds the output: zero contribution
-            continue
-        taper = (past - i) / float(past)
-        sl = torch.cat([xs.new_zeros(B, i), energy_compressed[:, : T_out - i]], dim=1)
-        past_max = torch.maximum(past_max, sl * taper)
-    energy_hyst = (past_max + future_max) / 2.0  # [B, T_out]
-
-    first = torch.arange(T_out, device=dev)[None, :] == 0
-    skipped = (sig_energy <= cfg.low_energy_threshold) | first
-    lsd = torch.where(skipped, zero, lsd_t)
-    ewld = lsd * energy_hyst
-    ew_lpf = filters.first_order_lowpass(
-        torch.where(skipped, zero, ewld),
-        cfg.lpf_alpha,
-        C.MEAN_EMPHASIS_WEIGHTED_LOCAL_DIFFERENCE,
-    )
-    rsd = torch.where(skipped, zero, ewld / (ew_lpf + 0.01 * C.MEAN_EMPHASIS_WEIGHTED_LPF))
-    changes = torch.where(skipped, zero, torch.clamp(rsd, max=cfg.speech_changes_clamp))
-    return C.TENSION_A * (energy_hyst - C.TENSION_M_E) + C.TENSION_B * (
-        changes - C.TENSION_M_S
-    )
+    return analysis.tension_chain(energy, lsd_full[:, :T_out], cfg, T_out).tension
 
 
 def _plan_max_speed(global_speed: float, nonlinear_factor: float) -> float:

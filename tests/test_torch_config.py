@@ -148,6 +148,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import speedy_tpu_torch\n"
         "import speedy_tpu_torch.ops.kernels, speedy_tpu_torch.ops._build\n"
+        "import speedy_tpu_torch.cli, speedy_tpu_torch.io.wave\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'speedy_tpu'))\n"
         "assert not bad, bad\n"

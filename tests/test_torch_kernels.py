@@ -66,6 +66,41 @@ def test_cuda_errors_raise():
 
 def test_build_keys_on_sources():
     names = [p.name for p in _build.sources()]
-    assert {"analysis.cu", "pitch.cu", "synth.cu"} <= set(names)
+    assert {"analysis.cu", "pitch.cu", "synth.cu", "gather_rows.cu"} <= set(names)
     assert len(_build.source_hash()) == 16
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def _fake_nvcc(tmp_path, fail_on=""):
+    """An nvcc stand-in: writes its -o target, prints a ptxas line, and
+    fails for the source named fail_on."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        f'case "$*" in *"{fail_on or "@none@"}"*) echo "error in $out"; exit 1;; esac\n'
+        'echo "ptxas info    : Used 8 registers"; : > "$out"\n'
+    )
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
+    lib = _build.build()
+    assert lib.exists() and lib.parent.name == _build.source_hash()
+    log = (lib.parent / "build.log").read_text()
+    for src in _build.sources():
+        assert f"{src.stem}.o {src}" in log
+    assert log.count("Used 8 registers") == len(_build.sources()) + 1  # + the link
+    assert _build.build() == lib  # cached by source hash
+
+
+def test_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path, "gather_rows.cu"))
+    with pytest.raises(RuntimeError, match="nvcc failed for .*gather_rows.cu"):
+        _build.build()
+    assert not (tmp_path / "build" / _build.source_hash() / _build.LIB_NAME).exists()

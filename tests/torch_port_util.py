@@ -142,3 +142,145 @@ def assert_outputs_agree_up_to_ties(
     total = int(np.sum(valid))
     bad = int(np.count_nonzero(d > 1e-3))
     assert bad / max(total, 1) < 0.02, (bad, total)
+
+
+def mask_edge_margins(x: np.ndarray, cfg, T: int, integer_step: bool) -> np.ndarray:
+    """[T - hysteresis_future]: for each tension frame t, the smallest
+    relative distance of a bin 1..W-1 of frame t or t-1 to frame t's 40 dB
+    mask threshold max(|X_t|)/100, from a float64 spectrogram at the
+    integer- or float-step frame starts (the predicate of
+    testutil.assert_tension_outliers_are_mask_edges, which assumes
+    integer-step frames)."""
+    from speedy_tpu_torch.ops.framing import frame_starts
+
+    W = cfg.window_size
+    starts = frame_starts(cfg, T, integer_step)
+    x = np.asarray(x, np.float64)
+    idx = np.clip(starts[:, None] + np.arange(W)[None, :], 0, len(x) - 1)
+    frames = x[idx]
+    state = np.concatenate([[0.0], x[np.clip(starts[:-1] + W - 1, 0, len(x) - 1)]])
+    pre = frames - 0.97 * np.concatenate([state[:, None], frames[:, :-1]], axis=1)
+    i = np.arange(W, dtype=np.float64)
+    win = 0.54 - 0.46 * np.cos(2.0 * np.pi * i / (W - 1.0))
+    spec = np.abs(np.fft.rfft(pre * win, n=2 * W, axis=1))[:, 1:W]
+    T_out = T - cfg.hysteresis_future
+    cur = spec[:T_out]
+    last = np.concatenate([np.zeros((1, W - 1)), spec[: T_out - 1]])
+    thresh = cur.max(axis=1, keepdims=True) / 100.0
+    d = np.minimum(np.abs(cur - thresh), np.abs(last - thresh))
+    return d.min(axis=1) / np.maximum(thresh[:, 0], 1e-300)
+
+
+def assert_tension_gate(x, cfg, T, t_ref, t_got, integer_step=True):
+    """Tension within 2e-5 (tests/test_chunked.py:38) except at 40 dB
+    mask-edge frames (relative margin under 1e-4)."""
+    diffs = np.abs(np.asarray(t_got) - np.asarray(t_ref))
+    out = np.flatnonzero(diffs > 2e-5)
+    if out.size:
+        margins = mask_edge_margins(x, cfg, T, integer_step)
+        for t in out:
+            assert margins[t] < 1e-4, ("tension outlier off the mask edge",
+                                       int(t), float(diffs[t]), float(margins[t]))
+
+
+def single_pitch_grids(x, speeds, cfg, min_speed_bound, max_speed_bound=None):
+    """(the JAX engine's pitch grid, the port's plain one), each [1, n_grid],
+    for one utterance x [L] as time_scale_grid searches it.
+
+    The JAX engine's grid is read back from _wsola_grid_batch itself
+    (return_period=True gives each chunk's period; a chunk's cell comes
+    from the time map): a pitch search traced outside the engine
+    (jax_pitch_grid) pads the cells to another count, and XLA then rounds
+    its products differently, which moves near-tied cells by whole lags."""
+    from speedy_tpu.ops import wsola_fast as jwf
+    from speedy_tpu_torch.ops import kernels
+    from speedy_tpu_torch.ops.wsola_fast import (
+        grid_positions, pitch_corr_matrices, pitch_grid_stride, plan_grid,
+    )
+
+    maxp, minp = cfg.wsola_max_period, cfg.wsola_min_period
+    G = pitch_grid_stride(cfg)
+    n_grid = -(-(len(x) + 2 * maxp) // G)
+    xb = np.array(x, np.float32)[None]
+    sp = np.array(speeds, np.float32)[None]
+    hop, cap, K = plan_grid(cfg, len(x), min_speed_bound)
+    _, per = jwf._wsola_grid_batch(
+        jnp.asarray(xb), jnp.asarray([len(x)], jnp.int32), jnp.asarray(sp),
+        minp, maxp, cfg.frame_step_int, hop, cap, K,
+        max_speed_plan=max_speed_bound, return_period=True,
+    )
+    grid_j = jax_pitch_grid(xb, None, maxp, minp, maxp, G, n_grid)
+    cells = grid_positions(
+        torch.tensor([len(x)], dtype=torch.int32), torch.as_tensor(sp),
+        torch.as_tensor(grid_j), cfg.frame_step_int, hop, G, cap, K, max_speed_bound,
+    ).cell.numpy()[0]
+    per = np.asarray(per)[0]
+    for c in np.unique(cells):
+        assert np.all(per[cells == c] == per[cells == c][0]), c
+        grid_j[0, c] = per[cells == c][0]
+    corr = tuple(torch.as_tensor(m) for m in pitch_corr_matrices(cfg))
+    grid_t = kernels.pitch_ssd_reference(
+        torch.as_tensor(xb), torch.ones(1), maxp, minp, maxp, G, n_grid, corr
+    ).numpy()
+    return grid_j, grid_t
+
+
+def tipped_slots(x, n, speeds_a, speeds_b, grid, cfg) -> np.ndarray:
+    """[n] bool: the output samples of one utterance in the two slots fed by
+    a chunk whose pitch cell or phase snap rounds differently under two
+    nearly equal speed sequences (the attribution of
+    test_torch_pipeline.py::test_grid_positions_move_only_where_a_rounding_tips:
+    elsewhere a chunk's source position does not depend on float32
+    rounding of the speeds)."""
+    from speedy_tpu_torch.ops.wsola_fast import (
+        default_hop, grid_positions, pitch_grid_stride,
+    )
+
+    hop = default_hop(cfg)
+    K = n // hop + 2
+    lens = torch.tensor([len(x)], dtype=torch.int32)
+    pa, pb = (
+        grid_positions(lens, torch.tensor(np.asarray(s, np.float32)).reshape(1, -1),
+                       torch.as_tensor(grid), cfg.frame_step_int, hop,
+                       pitch_grid_stride(cfg), K * hop, K)
+        for s in (speeds_a, speeds_b)
+    )
+    tipped = ((pa.cell != pb.cell) | (pa.snap != pb.snap))[0].numpy()
+    touched = tipped.copy()
+    touched[1:] |= tipped[:-1]
+    return np.repeat(touched, hop)[:n]
+
+
+def assert_singles_agree(
+    xs, ys_ref, ys_got, speeds_ref, speeds_got, cfg, min_speed_bounds,
+    max_speed_bound=None,
+):
+    """Single-utterance outputs of equal-length inputs xs [B, L] (ys_*: B
+    float arrays, each pair trimmed to its equal valid length; ys_ref from
+    the JAX package at speeds_ref [B, F]) agree as a batch up to pitch
+    ties (assert_outputs_agree_up_to_ties against the JAX engine's own
+    grids), outside the slots of chunks that the float32 difference of the
+    two speed sequences tips (tipped_slots; at most 1% of the chunks)."""
+    from speedy_tpu_torch.ops.wsola_fast import default_hop
+
+    B = len(xs)
+    hop = default_hop(cfg)
+    n = [len(y) for y in ys_ref]
+    cap = max(n)
+    y_ref, y_got = np.zeros((B, cap), np.float32), np.zeros((B, cap), np.float32)
+    grids_j, grids_t = [], []
+    for b in range(B):
+        assert len(ys_got[b]) == n[b], (b, len(ys_got[b]), n[b])
+        gj, gt = single_pitch_grids(
+            xs[b], speeds_ref[b], cfg, min_speed_bounds[b], max_speed_bound
+        )
+        grids_j.append(gj[0])
+        grids_t.append(gt[0])
+        keep = ~tipped_slots(xs[b], n[b], speeds_ref[b], speeds_got[b], gj, cfg)
+        assert (~keep).sum() <= 2 * hop * max(1, n[b] // hop // 100), (b, (~keep).sum())
+        y_ref[b, : n[b]] = np.asarray(ys_ref[b], np.float32) * keep
+        y_got[b, : n[b]] = np.asarray(ys_got[b], np.float32) * keep
+    assert_outputs_agree_up_to_ties(
+        y_ref, y_got, np.asarray(n), np.asarray(speeds_ref, np.float32),
+        np.asarray(xs, np.float32), np.stack(grids_j), np.stack(grids_t), cfg, hop,
+    )
