@@ -4,20 +4,24 @@
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card, and drives the
-port's two paths, each against the same call through the plain versions:
+each kernel against its plain PyTorch version on the card (the row gathers
+4-8 also against each other, at the grid engine's shape B=128 x 10 s at
+16 kHz, K=1,009 rows of 321), and drives the port's paths, each against
+the same call through the plain versions:
   - the batched path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz,
     3.5x, capacity factor 1.33, per-utterance gain), then the dryrun sweep
     cases (0.7x with a ragged length; 22.05 kHz 3.0x);
   - the single-utterance grid pipeline (pipeline.nonlinear_speedup on 60 s
     at 16 kHz, 3.5x; linear_time_scale at 44.1 kHz, 2.0x and the 1.0x
     pass-through; time_scale_grid with a speed ceiling against without
-    one), and its CLI in a subprocess against the same call in process.
-Prints one line per phase, a JSON line of the kernels' launches, errors
-and times, the card's name and power limit, and last
+    one), and its CLI in a subprocess against the same call in process;
+  - the block-span synthesis route (kernel 5) against kernel 3 on the
+    bounded 60 s run's chunk positions and on the batch step's.
+Prints one line per phase, a JSON line of the kernels' launches, errors,
+times and bounds, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
-is non-zero and no result line is printed. Imports neither JAX nor the JAX
-package.
+is non-zero and no result line is printed. Imports neither JAX, nor the
+JAX package, nor its tests.
 """
 
 from __future__ import annotations
@@ -43,10 +47,23 @@ KERNEL_SOURCES = {
                      "speedy_tpu/ops/pallas_kernels.py:653"),
     "gather_rows": ("speedy_tpu_torch/csrc/gather_rows.cu",
                     "speedy_tpu/ops/pallas_kernels.py:121"),
+    "gather_rows_block": ("speedy_tpu_torch/csrc/gather_block.cu",
+                          "speedy_tpu/ops/pallas_kernels.py:980"),
+    "gather_rows_pipelined": ("speedy_tpu_torch/csrc/gather_pipelined.cu",
+                              "speedy_tpu/ops/pallas_kernels.py:288"),
+    "gather_rows_coalesced": ("speedy_tpu_torch/csrc/gather_coalesced.cu",
+                              "speedy_tpu/ops/pallas_coalesced.py:102"),
+    "gather_rows_block_v2": ("speedy_tpu_torch/csrc/gather_block.cu",
+                             "experiments/gather_v2.py:75"),
 }
 # The batched path's kernels; the single-utterance path runs pitch_ssd and
 # gather_rows.
 BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
+SINGLE_KERNELS = ("pitch_ssd", "gather_rows")
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, and
+# float32 FLOP/s outside the tensor cores (an FMA is 2 FLOP).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 CORR = ("pitch_ea", "pitch_es", "pitch_inv", "pitch_band")
 STEP_WINDOWS, STEPS_PER_WINDOW = 5, 10
 
@@ -162,6 +179,58 @@ def mask_edge_margins(x: np.ndarray, cfg, frames) -> np.ndarray:
     return np.asarray(out)
 
 
+def assert_period_flips_are_ties(segs, per_a, per_b, taps, minp, maxp,
+                                 rel_tol=1e-4, max_flip_frac=0.02):
+    """Every cell where two pitch grids part by more than half a sample is a
+    float64 SSD tie: the exact objective SSD(d) = sum((seg[:taps] -
+    seg[d:d+taps])**2) at both chosen lags agrees within rel_tol of the
+    curve's scale, and such cells are at most max_flip_frac of all
+    (copied from tests/testutil.py::assert_period_flips_are_ties, which is
+    numpy-only; the smoke run imports nothing of the tests)."""
+    per_a = np.asarray(per_a, np.float64)
+    per_b = np.asarray(per_b, np.float64)
+    flips = np.argwhere(np.abs(per_a - per_b) > 0.5)
+    check(flips.shape[0] <= max(1, int(max_flip_frac * per_a.size)),
+          "too many integer period flips", flips.shape[0], per_a.size)
+    lags = np.arange(minp, maxp + 1)
+    for b, g in flips:
+        seg = np.asarray(segs[b, g][: taps + maxp], np.float64)
+
+        def ssd(lag):
+            i = int(round(float(lag)))
+            return float(np.sum((seg[:taps] - seg[i : i + taps]) ** 2))
+
+        scale = max(max(ssd(l) for l in lags), 1e-30)
+        margin = abs(ssd(per_a[b, g]) - ssd(per_b[b, g])) / scale
+        check(margin < rel_tol, "period flip is not an SSD tie", int(b), int(g),
+              float(per_a[b, g]), float(per_b[b, g]), margin)
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """The least time the card could take for work that moves nbytes and
+    does flops float32 operations: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rfft_flop(n: int) -> float:
+    """The usual count of a real FFT of n points: 2.5 n log2 n FLOP."""
+    return 2.5 * n * np.log2(n)
+
+
+def covered_samples(starts, width, live, L) -> int:
+    """How many distinct samples of x [B, L] the windows [s, s + width) of
+    the live rows cover (clipped to [0, L)): what a gather must read."""
+    import torch
+
+    s = starts.long()
+    one = live.to(torch.int32)
+    d = torch.zeros(starts.shape[0], L + 1, dtype=torch.int32, device=starts.device)
+    d.scatter_add_(1, s.clamp(0, L), one)
+    d.scatter_add_(1, (s + width).clamp(0, L), -one)
+    return int((d.cumsum(1)[:, :L] > 0).sum())
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -195,13 +264,25 @@ def check_analysis(kernels, x, gain, tables, cfg, label):
     ms = time_ms(lambda: kernels.analysis_energy_lsd(*args))
     plain_ms = time_ms(lambda: kernels.analysis_energy_lsd_reference(*args))
     err = float(e_err.max())
+    # The least work a frame needs: pre-emphasis and window (3 FLOP a
+    # sample), bins 1..W-1 of the frame zero-padded to 2W points, by a real
+    # FFT or, if fewer, by the direct sums' 2*W*(W-1) FMAs, and per bin its
+    # magnitude, the energy, the threshold's max, the normalisation and the
+    # masked log ratio (13 FLOP). x, gain, the window and twiddles read
+    # once, energy and lsd written once.
+    B, L = x.shape
+    W = cfg.window_size
+    spectrum = min(rfft_flop(2 * W), 4.0 * W * (W - 1))
+    nbytes = 4 * (B * L + B + W + 4 * W + 2 * B * T)
+    bound_ms, bound_by = bound(nbytes, (3 * W + spectrum + 13 * (W - 1)) * B * T)
     emit("kernel", kernel="analysis_energy_lsd", shape=label, energy_max_abs_err=err,
          lsd_max_abs_err=float(dl.max()), lsd_frames_out_max=worst_frames,
-         ms=ms, plain_ms=plain_ms)
-    return err, ms, plain_ms
+         ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
-def check_pitch(kernels, testutil, x, gain, tables, cfg, label):
+def check_pitch(kernels, x, gain, tables, cfg, label):
     import torch
     from speedy_tpu_torch.ops.wsola_fast import pitch_grid_stride
 
@@ -230,17 +311,29 @@ def check_pitch(kernels, testutil, x, gain, tables, cfg, label):
     xp = np.zeros((B, n_grid * G), np.float32)
     xp[:, :L] = x.cpu().numpy()
     segs = xp.reshape(B, n_grid, G)[:, :, :seg_w]
-    testutil.assert_period_flips_are_ties(segs, per_p, per_k, taps, minp, maxp)
+    assert_period_flips_are_ties(segs, per_p, per_k, taps, minp, maxp)
     ms = time_ms(lambda: kernels.pitch_ssd(*args))
     plain_ms = time_ms(lambda: kernels.pitch_ssd_reference(*args))
     err = float(d.max())
+    # The least work a cell needs: the gain (1 FLOP a sample of its seg_w),
+    # the correlation of its taps-sample template with the segment at each
+    # of its nl lags, by FFTs of seg_w points (two forward, one inverse, 6
+    # FLOP a bin between; lag + taps <= seg_w, so nothing wraps) or, if
+    # fewer, by the direct sums' taps FMAs a lag; the window energies by a
+    # running sum (2 FLOP a sample) and per lag the SSD and the argmin (4
+    # FLOP). x and gain read once, the periods written once.
+    nl = maxp - minp + 1
+    corr = min(3 * rfft_flop(seg_w) + 6 * (seg_w // 2 + 1), 2.0 * taps * nl)
+    nbytes = 4 * (B * L + B + B * n_grid)
+    bound_ms, bound_by = bound(nbytes, (3 * seg_w + corr + 4 * nl) * B * n_grid)
     emit("kernel", kernel="pitch_ssd", shape=label, G=G, cells=B * n_grid,
          max_abs_err=err, share_off_0p1_same_lag=share,
          integer_flips=int(flips.sum()), kernel_share_off_f64_0p1=float(np.mean(dk > 0.1)),
          plain_share_off_f64_0p1=float(np.mean(dp > 0.1)),
          kernel_max_off_f64=float(dk.max()), plain_max_off_f64=float(dp.max()),
-         ms=ms, plain_ms=plain_ms)
-    return err, ms, plain_ms
+         ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def exact_pitch(kernels, x, gain, taps, minp, maxp, G, n_grid):
@@ -297,9 +390,17 @@ def check_synth(kernels, x, gain, hop, K, rate, label):
     check(err <= 1e-5, label, "max|d|", err)
     ms = time_ms(lambda: kernels.gather_synth(*args))
     plain_ms = time_ms(lambda: kernels.gather_synth_reference(*args))
+    # The output written once; read once: the 2*hop + 1 samples of every
+    # chunk that feeds a valid output slot, and the controls.
+    K = a_i.shape[1]
+    live = torch.arange(K, device=x.device)[None, :] * hop < valid[:, None]
+    nbytes = 4 * (B * capacity + covered_samples(a_i, 2 * hop + 1, live, L)
+                  + 2 * B * K + 2 * hop + 2 * B)
+    bound_ms, bound_by = bound(nbytes)
     emit("kernel", kernel="gather_synth", shape=label, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms)
-    return err, ms, plain_ms
+         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -453,24 +554,192 @@ def gather_case(xs, cfg, rate, seed):
             torch.as_tensor(n_valid, device=xs.device))
 
 
-def check_gather_rows(kernels, args, label):
+def check_gather(kernels, name, label, x, starts, width, n_valid=None, same_as=None, **kw):
+    """Gather kernel `name` of kernels.py on (x, starts, width, n_valid) and
+    its own arguments kw, run alone: one launch of its kernel and no other;
+    rows exactly its plain version's (gather_rows_reference, the zero rows
+    past n_valid included) and, where given, same_as (kernel 4's rows);
+    median device times of the kernel, the plain version and the library
+    call; the bytes it must move and its bound. Returns (result, rows)."""
     import torch
 
-    src, starts, width, n_valid = args
-    rows_k = kernels.gather_rows(src, starts, width, n_valid)
-    rows_p = kernels.gather_rows_reference(src, starts, width, n_valid)
+    fn = getattr(kernels, name)
+    if n_valid is not None:
+        kw["n_valid"] = n_valid
+    call = lambda: fn(x, starts, width, **kw)
+    launches, rows = path_launches(kernels, call)
+    check(launches[name] == 1 and sum(launches.values()) == 1, label, name, "launches",
+          launches)
+    plain = lambda: kernels.gather_rows_reference(x, starts, width, n_valid)
+    rows_p = plain()
     torch.cuda.synchronize()
-    check(rows_k.shape == rows_p.shape, label, "shape", tuple(rows_k.shape))
-    err = float((rows_k - rows_p).abs().max())
-    # A copy: exactly equal, the zero rows past n_valid included.
-    check(torch.equal(rows_k, rows_p), label, "rows differ", err)
-    ms = time_ms(lambda: kernels.gather_rows(src, starts, width, n_valid))
-    plain_ms = time_ms(lambda: kernels.gather_rows_reference(src, starts, width, n_valid))
-    B, K = starts.shape
-    emit("kernel", kernel="gather_rows", shape=label, B=B, K=K, width=width,
-         L=src.shape[1], rows_valid=int(n_valid.clamp(max=K).sum()), max_abs_err=err,
-         ms=ms, plain_ms=plain_ms, output_MB=rows_k.numel() * 4 / 1e6)
-    return err, ms, plain_ms
+    check(rows.shape == rows_p.shape, label, name, "shape", tuple(rows.shape))
+    err = float((rows - rows_p).abs().max())
+    check(torch.equal(rows, rows_p), label, name, "rows differ from the plain version", err)
+    if same_as is not None:
+        check(torch.equal(rows, same_as), label, name, "rows differ from kernel 4's")
+    del rows_p
+    # The library call: the [B, L - width + 1, width] view unfold gives,
+    # indexed by the starts. It clamps nothing (the starts here are in
+    # range) and keeps the rows past n_valid.
+    B, L = x.shape
+    K = starts.shape[1]
+    check(int(starts.min()) >= 0 and int(starts.max()) <= L - width, label,
+          "starts out of range for the library call")
+    view = x.unfold(1, width, 1)
+    batch_idx = torch.arange(B, device=x.device)[:, None]
+    library = lambda: view[batch_idx, starts]
+    live = torch.ones(B, K, dtype=torch.bool, device=x.device)
+    if n_valid is not None:
+        live = torch.arange(K, device=x.device)[None, :] < n_valid[:, None]
+    check(torch.equal(torch.where(live[:, :, None], library(), 0.0), rows), label,
+          "library call differs")
+    ms, plain_ms, library_ms = time_ms(call), time_ms(plain), time_ms(library)
+    nbytes = 4 * (rows.numel() + covered_samples(starts, width, live, L) + starts.numel()
+                  + (0 if n_valid is None else B))
+    bound_ms, bound_by = bound(nbytes)
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=library_ms, launches=launches[name])
+    emit("kernel", kernel=name, shape=label, B=B, K=K, width=width, L=L,
+         rows_live=int(live.sum()), bytes=nbytes, **result)
+    return result, rows
+
+
+def gather_phase(kernels, wsola_fast, xs, cfg, ceiling):
+    """Kernels 4-8 at the grid engine's own gather shape, "shape A"
+    (experiments/gather_v2.py:13-21, 117-120): xs [B, L] padded as the
+    unfused synthesis pads it, K rows of 2*hop + 1 whose starts step 3.51
+    hops a chunk, clipped to the signal, the first L / 3.51 / hop + 2 of
+    them live, R = 128 rows a block and the w_span of the ceiling.
+    Kernels 5 and 8 run kernel 4's arguments; kernels 6 and 7 (every row
+    live, K a multiple of 8) run at B = 32 and at B. Each is held to its
+    plain version and to kernel 4's rows. Returns each kernel's result at
+    the full B."""
+    import torch
+
+    B, L = xs.shape
+    maxp = cfg.wsola_max_period
+    hop, _, K = wsola_fast.plan_grid(cfg, L, 1.0)
+    width, R = 2 * hop + 1, wsola_fast.SPAN_ROWS
+    src = torch.nn.functional.pad(xs, (maxp, 3 * maxp + 2 * hop)).contiguous()
+    c = np.cumsum(np.full((B, K), hop * 3.51), axis=1).astype(np.float32)
+    starts = torch.as_tensor(np.clip(c.astype(np.int32), 0, L - 1) + maxp, device=xs.device)
+    live = int(L / 3.51 / hop) + 2
+    n_valid = torch.full((B,), live, dtype=torch.int32, device=xs.device)
+    w_span = wsola_fast.span_width(R, hop, ceiling, maxp, width)
+    label = f"shape A: 16kHz B={B} K={K} width {width}, {live} live, R={R} w_span={w_span}"
+    out = {}
+    out["gather_rows"], rows4 = check_gather(kernels, "gather_rows", label, src, starts,
+                                             width, n_valid)
+    for name in ("gather_rows_block", "gather_rows_block_v2"):
+        out[name], _ = check_gather(kernels, name, label, src, starts, width, n_valid,
+                                    same_as=rows4, rows_per_block=R, w_span=w_span)
+    del rows4
+    K8 = K // kernels.COALESCED_ROWS * kernels.COALESCED_ROWS
+    for nb in (min(32, B), B):
+        x_b, s_b = src[:nb].contiguous(), starts[:nb, :K8].contiguous()
+        label = f"16kHz B={nb} K={K8} width {width}, every row live"
+        _, rows4 = check_gather(kernels, "gather_rows", label, x_b, s_b, width)
+        out["gather_rows_pipelined"], _ = check_gather(
+            kernels, "gather_rows_pipelined", label, x_b, s_b, width, same_as=rows4)
+        route = torch.full((nb, K8 // 8), -1, dtype=torch.int32, device=xs.device)
+        out["gather_rows_coalesced"], _ = check_gather(
+            kernels, "gather_rows_coalesced", label, x_b, s_b, width, same_as=rows4,
+            span_rows=64, span_route=route)
+        want = kernels.coalesced_span_blocks(s_b, width, 64, x_b.shape[1])
+        check(torch.equal(route, want.to(torch.int32)), label, "kernel 7's routes",
+              int((route != want.to(torch.int32)).sum()))
+        share = float(route.float().mean())
+        out["gather_rows_coalesced"]["span_route_share"] = share
+        emit("kernel_route", kernel="gather_rows_coalesced", shape=label,
+             blocks=route.numel(), span_route_share=share)
+        del rows4
+    return out
+
+
+def check_gather_edges(kernels, dev):
+    """Kernels 4-8 on starts that break the TPU kernels' contracts, each
+    exactly equal to the plain version (kernels 6 and 7 on the first
+    K // 8 * 8 rows): random starts, negative and past L - width, with
+    n_valid of 0 and below, and a w_span of 2,048 that no tile's union
+    fits; 44.1 kHz rows of 883 stepping up to 2,867 samples (the 6.5x
+    ceiling), whose tile unions overflow the tile buffer; sorted starts
+    with R = 5 and no n_valid. Kernel 7's routes equal
+    coalesced_span_blocks'."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    x_r = rng.standard_normal((4, 50000)).astype(np.float32)
+    s_r = rng.integers(-1000, 51000, (4, 301))
+    x_w = rng.standard_normal((4, 450000)).astype(np.float32)
+    s_w = np.minimum(np.cumsum(rng.integers(0, 2867, (4, 150)), axis=1), 450000 - 884)
+    cases = {
+        "random": (x_r, s_r, 443, [301, 100, 0, -3], 32, 2048),
+        "wide": (x_w, s_w, 883, [150, 149, 17, 1], 128, 366592),
+        "sorted R=5": (x_r, np.sort(s_r, axis=1), 321, None, 5, 321),
+    }
+    shares = {}
+    for label, (x, s, width, nv, R, w_span) in cases.items():
+        x = torch.as_tensor(x, device=dev)
+        s = torch.as_tensor(s.astype(np.int32), device=dev)
+        nv = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=dev)
+        want = kernels.gather_rows_reference(x, s, width, nv)
+        got = {"gather_rows": kernels.gather_rows(x, s, width, nv)}
+        for name in ("gather_rows_block", "gather_rows_block_v2"):
+            got[name] = getattr(kernels, name)(x, s, width, R, w_span, nv)
+        for name, rows in got.items():
+            check(torch.equal(rows, want), label, name, "rows differ from the plain version")
+        K8 = s.shape[1] // kernels.COALESCED_ROWS * kernels.COALESCED_ROWS
+        s8 = s[:, :K8].contiguous()
+        want = kernels.gather_rows_reference(x, s8, width)
+        route = torch.full((s.shape[0], K8 // 8), -1, dtype=torch.int32, device=dev)
+        check(torch.equal(kernels.gather_rows_pipelined(x, s8, width), want), label,
+              "gather_rows_pipelined rows differ from the plain version")
+        check(torch.equal(kernels.gather_rows_coalesced(x, s8, width, 64, route), want), label,
+              "gather_rows_coalesced rows differ from the plain version")
+        routes = kernels.coalesced_span_blocks(s8, width, 64, x.shape[1]).to(torch.int32)
+        check(torch.equal(route, routes), label, "kernel 7's routes")
+        shares[label] = float(route.float().mean())
+    emit("gather_edges", cases=list(cases), exact=True, coalesced_span_route_share=shares)
+
+
+def span_route_check(kernels, wsola_fast, tables, xs, lengths, speeds, gain, cfg, capacity,
+                     ceiling, label):
+    """The block-span synthesis route (wsola_fast._synth_spans: kernel 5,
+    then torch) and kernel 3 on the same chunk positions, those the grid
+    engine gives xs [B, L] at speeds [B, F] under the ceiling: the span
+    route launches kernel 5 and not kernel 3, the two agree within 1e-6;
+    both routes' device times. Returns the span route's launches, output
+    and valid lengths."""
+    import torch
+
+    B, L = xs.shape
+    maxp, minp = cfg.wsola_max_period, cfg.wsola_min_period
+    hop = wsola_fast.default_hop(cfg)
+    G = wsola_fast.pitch_grid_stride(cfg, hop)
+    K = capacity // hop + 1
+    g = torch.ones(B, device=xs.device) if gain is None else gain
+    corr = tuple(tables[k] for k in CORR)
+    grid = kernels.pitch_ssd(xs, g, maxp, minp, maxp, G, -(-(L + 2 * maxp) // G), corr)
+    pos = wsola_fast.grid_positions(lengths, speeds, grid, cfg.frame_step_int, hop, G,
+                                    capacity, K, ceiling)
+    a_i = torch.floor(pos.a).to(torch.int32)
+    a_f = pos.a - a_i.to(torch.float32)
+    cola = tables["cola"]
+    spans = lambda: wsola_fast._synth_spans(xs, a_i, a_f, cola, gain, pos.valid, hop,
+                                            capacity, maxp, ceiling)
+    fused = lambda: kernels.gather_synth(xs, a_i, a_f, cola, g, pos.valid, hop, capacity)
+    l_s, y_s = path_launches(kernels, spans)
+    l_f, y_f = path_launches(kernels, fused)
+    check(l_s["gather_rows_block"] >= 1 and sum(l_s.values()) == l_s["gather_rows_block"],
+          label, "span route launches", l_s)
+    check(l_f["gather_synth"] == 1 and sum(l_f.values()) == 1, label, "kernel 3 launches", l_f)
+    d = float((y_s - y_f).abs().max())
+    check(bool(torch.isfinite(y_s).all()) and d < 1e-6, label, "span route against kernel 3", d)
+    w_span = wsola_fast.span_width(wsola_fast.SPAN_ROWS, hop, ceiling, maxp, 2 * hop + 1)
+    emit("span_route", case=label, B=B, K=K, w_span=w_span, launches_span=l_s,
+         launches_fused=l_f, max_abs_err=d, span_ms=time_ms(spans), fused_ms=time_ms(fused))
+    return l_s, y_s, pos.valid
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +747,7 @@ def check_gather_rows(kernels, args, label):
 # ---------------------------------------------------------------------------
 
 
-def compare_single(kernels, testutil, wsola_fast, x, cfg, res, plain, label, dev):
+def compare_single(kernels, wsola_fast, x, cfg, res, plain, label, dev):
     """The kernel path's SpeedupResult `res` for one utterance x [L]
     (float32) against the same call through the plain versions, `plain`:
       - equal valid lengths; tension within 2e-5 except at 40 dB mask-edge
@@ -549,7 +818,7 @@ def compare_single(kernels, testutil, wsola_fast, x, cfg, res, plain, label, dev
     check(same_lag_off < 0.005, label, "pitch cells off by > 0.1 sample", same_lag_off)
     xp = np.zeros((1, n_grid * G), np.float32)
     xp[0, : len(x)] = x
-    testutil.assert_period_flips_are_ties(
+    assert_period_flips_are_ties(
         xp.reshape(1, n_grid, G)[:, :, : 2 * maxp], g_p, g_k, maxp, minp, maxp)
     moved = (pk.a != positions(plain, grid_p).a)[0, :live].cpu().numpy()
     d_own = np.abs(np.asarray(plain.output, np.float32) - y)
@@ -565,6 +834,11 @@ def compare_single(kernels, testutil, wsola_fast, x, cfg, res, plain, label, dev
                 own_moved_chunks=int(moved.sum()), own_max_abs_err_outside_moved=own_far_max,
                 own_share_over_1e3=float((d_own > 1e-3).sum()) / max(n, 1),
                 own_max_abs_err=float(d_own.max()))
+
+
+def only(launches, names) -> bool:
+    """Every kernel in names launched, and no other."""
+    return all((launches[k] > 0) == (k in names) for k in launches)
 
 
 def path_launches(kernels, run):
@@ -661,8 +935,6 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no speedy_tpu_torch package", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "tests"))  # testutil: numpy-only checks
-    import testutil
     from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline
     from speedy_tpu_torch.io import wave
     from speedy_tpu_torch.ops import _build, kernels, wsola_fast
@@ -707,8 +979,8 @@ def main() -> int:
         kernels, xs16, gain16, tab16, cfg16, "16kHz B=128 L=160000")
     check_analysis(kernels, xs22, gain22, tab22, cfg22, "22.05kHz B=8 L=220500")
     results["pitch_ssd"] = check_pitch(
-        kernels, testutil, xs16, gain16, tab16, cfg16, "16kHz B=128 L=160000 G=512")
-    check_pitch(kernels, testutil, xs22, gain22, tab22, cfg22, "22.05kHz B=8 L=220500 G=768")
+        kernels, xs16, gain16, tab16, cfg16, "16kHz B=128 L=160000 G=512")
+    check_pitch(kernels, xs22, gain22, tab22, cfg22, "22.05kHz B=8 L=220500 G=768")
     results["gather_synth"] = check_synth(
         kernels, xs16, gain16, 160, 383, 3.5, "hop=160 B=128 K=383")
     check_synth(kernels, xs22, gain22, 220, 400, 3.0, "hop=220 B=8 K=400")
@@ -716,18 +988,36 @@ def main() -> int:
     xs44 = torch.as_tensor(batch_of(fam44, 4), device=dev)
     check_synth(kernels, xs44, gain22[:4].contiguous(), 441, 400, 3.0, "hop=441 B=4 K=400")
     # Kernel 4 at the single-utterance path's own shape (its arguments
-    # recorded from one nonlinear_speedup call on 60 s), then at two batch
-    # shapes large enough to time.
+    # recorded from one nonlinear_speedup call on 60 s) and at 44.1 kHz.
     cfg44 = SpeedyConfig(44100)
     x60 = bench_families(60 * 16000, 16000)[0]
     path_args = recorded_call(kernels, "gather_rows", lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
-    results["gather_rows"] = check_gather_rows(
-        kernels, path_args, "path: 16kHz B=1 60s 3.5x")
-    check_gather_rows(kernels, gather_case(xs16, cfg16, 3.5, 5), "16kHz B=128 L=160000 3.5x")
+    results["gather_rows"], _ = check_gather(
+        kernels, "gather_rows", "path: 16kHz B=1 60s 3.5x", *path_args)
+    # Jittered in-range starts at the batch size, kernels 5 and 8 held to
+    # kernel 4's rows on them.
+    ceiling16 = batch._plan_max_speed(3.5, 1.0)
+    case16 = gather_case(xs16, cfg16, 3.5, 5)
+    width16 = case16[2]
+    w_span16 = wsola_fast.span_width(wsola_fast.SPAN_ROWS, (width16 - 1) // 2, ceiling16,
+                                     cfg16.wsola_max_period, width16)
+    label = "16kHz B=128 L=160000 3.5x"
+    _, rows4 = check_gather(kernels, "gather_rows", label, *case16)
+    for name in ("gather_rows_block", "gather_rows_block_v2"):
+        check_gather(kernels, name, label, *case16, same_as=rows4,
+                     rows_per_block=wsola_fast.SPAN_ROWS, w_span=w_span16)
+    del case16, rows4
     xs44b = torch.as_tensor(batch_of(fam44, 16), device=dev)
-    check_gather_rows(kernels, gather_case(xs44b, cfg44, 3.5, 6), "44.1kHz B=16 L=441000 3.5x")
+    check_gather(kernels, "gather_rows", "44.1kHz B=16 L=441000 3.5x",
+                 *gather_case(xs44b, cfg44, 3.5, 6))
     del xs44b
+
+    # ---- 3b. the gather family (kernels 4-8) at the engine's shape ----
+    gathers = gather_phase(kernels, wsola_fast, xs16, cfg16, ceiling16)
+    check_gather_edges(kernels, dev)
+    for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced"):
+        results[name] = gathers[name]
 
     # ---- 4. the main path ----
     rate, cap_factor = 3.5, 1.33
@@ -738,8 +1028,8 @@ def main() -> int:
     res = engine(xs16, lengths, gain16)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    check(all(launches[k] > 0 for k in BATCH_KERNELS) and launches["gather_rows"] == 0,
-          "main path skipped a kernel or left its route", launches)
+    check(only(launches, BATCH_KERNELS), "main path skipped a kernel or left its route",
+          launches)
     capacity = res.output.shape[1]
     check(capacity == batch.grid_output_capacity(cfg16, L, rate, cap_factor), "capacity")
     max_valid = int(res.valid_length.max())
@@ -795,8 +1085,7 @@ def main() -> int:
         out = batch.batched_nonlinear_speedup(x_t, l_t, cfg, r, 1.0, 0.1)
         torch.cuda.synchronize()
         swept = dict(kernels.LAUNCHES)
-        check(all(swept[k] > 0 for k in BATCH_KERNELS) and swept["gather_rows"] == 0,
-              label, "skipped a kernel or left its route", swept)
+        check(only(swept, BATCH_KERNELS), label, "skipped a kernel or left its route", swept)
         check(bool((out.valid_length > 0).all()), label, "empty output")
         check(bool(torch.isfinite(out.output).all()), label, "non-finite output")
         cmp = compare_paths(batch, kernels, x_t, l_t, None, cfg, r, None, out, label)
@@ -806,16 +1095,14 @@ def main() -> int:
     # ---- 6. the single-utterance grid pipeline ----
     l_nl, res_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
-    check(l_nl["gather_rows"] >= 1 and l_nl["pitch_ssd"] >= 1,
-          "single nonlinear skipped a kernel", l_nl)
-    check(l_nl["gather_synth"] == 0 and l_nl["analysis_energy_lsd"] == 0,
-          "single nonlinear left its route", l_nl)
+    check(only(l_nl, SINGLE_KERNELS), "single nonlinear skipped a kernel or left its route",
+          l_nl)
     check(np.all(np.isfinite(res_nl.output)) and res_nl.tension.shape[0] > 0,
           "single nonlinear output")
     l_pl, plain_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev, reference=True))
     check(not any(l_pl.values()), "the plain path launched a kernel", l_pl)
-    cmp = compare_single(kernels, testutil, wsola_fast, x60, cfg16, res_nl, plain_nl,
+    cmp = compare_single(kernels, wsola_fast, x60, cfg16, res_nl, plain_nl,
                          "single nonlinear", dev)
     wall = single_split_ms(x60, cfg16, 3.5, dev)
     emit("single", case="nonlinear 16kHz 60s 3.5x", launches=l_nl,
@@ -826,11 +1113,10 @@ def main() -> int:
     x44 = bench_families(30 * 44100, 44100)[0]
     l_li, res_li = path_launches(kernels, lambda: pipeline.linear_time_scale(
         x44, cfg44, 2.0, engine="grid", device=dev))
-    check(l_li["gather_rows"] >= 1 and l_li["pitch_ssd"] >= 1
-          and l_li["gather_synth"] == 0, "single linear route", l_li)
+    check(only(l_li, SINGLE_KERNELS), "single linear route", l_li)
     plain_li = pipeline.linear_time_scale(x44, cfg44, 2.0, engine="grid", device=dev,
                                           reference=True)
-    cmp = compare_single(kernels, testutil, wsola_fast, x44, cfg44, res_li, plain_li,
+    cmp = compare_single(kernels, wsola_fast, x44, cfg44, res_li, plain_li,
                          "single linear", dev)
     # 1.0x pass-through: the int16 input back within 1 LSB
     # (tests/test_wsola.py:122-127).
@@ -853,8 +1139,8 @@ def main() -> int:
         x60, speeds, cfg16, min_speed_bound=msb, max_speed_bound=6.6, device=dev))
     l_u, r_u = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
         x60, speeds, cfg16, min_speed_bound=msb, device=dev))
-    check(l_b["gather_synth"] >= 1 and l_b["gather_rows"] == 0, "bounded route", l_b)
-    check(l_u["gather_rows"] >= 1 and l_u["gather_synth"] == 0, "unbounded route", l_u)
+    check(only(l_b, ("pitch_ssd", "gather_synth")), "bounded route", l_b)
+    check(only(l_u, SINGLE_KERNELS), "unbounded route", l_u)
     check(int(r_b.valid_length) == int(r_u.valid_length), "bounded valid_length")
     d_b = float((r_b.output - r_u.output).abs().max())
     check(d_b < 1e-6, "bounded against unbounded", d_b)
@@ -862,17 +1148,41 @@ def main() -> int:
          launches_bounded=l_b, launches_unbounded=l_u, valid_length=int(r_b.valid_length),
          max_abs_err=d_b)
 
+    # ---- 6b. the span synthesis route (kernel 5) against kernel 3 ----
+    # On the bounded 60 s run's chunk positions, then at shape A from the
+    # batch step's speeds (capacity for the slowest speed 1.0, K = 1,009).
+    n60 = len(x60)
+    l_span, y_span, v_span = span_route_check(
+        kernels, wsola_fast, tab16, torch.as_tensor(x60, device=dev)[None],
+        torch.tensor([n60], dtype=torch.int32, device=dev), speeds[None], None, cfg16,
+        wsola_fast.plan_grid(cfg16, n60, msb)[1], 6.6,
+        "16kHz 60s, the 3.5x run's speeds, ceiling 6.6")
+    check(int(v_span[0]) == int(r_b.valid_length), "span route valid_length")
+    d_span = float((y_span[0] - r_b.output).abs().max())
+    check(d_span < 1e-6, "span route against time_scale_grid's kernel 3", d_span)
+    span_route_check(
+        kernels, wsola_fast, tab16, xs16, lengths, res.speeds, gain16, cfg16,
+        wsola_fast.plan_grid(cfg16, L, 1.0)[1], ceiling16,
+        f"shape A: 16kHz B={B} 10s, the batch step's speeds, ceiling {ceiling16}")
+
     # ---- 7. the CLI ----
     emit("cli", **run_cli_phase(pipeline, wave, cfg16,
                                 bench_families(20 * 16000, 16000)[0], dev))
 
     # Launches: the batched path's run for its kernels, the single
-    # nonlinear run for kernel 4.
+    # nonlinear run for kernel 4, the 60 s span route run for kernel 5, and
+    # the gather phase's runs at shape A for kernels 6-8. Times, errors and
+    # bounds: kernels 1-3 at the batch shape, kernel 4 at its path's shape,
+    # kernels 5-8 at shape A.
     launches["gather_rows"] = l_nl["gather_rows"]
+    launches["gather_rows_block"] = l_span["gather_rows_block"]
+    results["gather_rows_block"] = gathers["gather_rows_block"]
+    for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced"):
+        launches[name] = results[name]["launches"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": results[name][0],
-         "ms": results[name][1], "plain_ms": results[name][2]}
+         "launches": launches[name], **{k: results[name][k] for k in keys}}
         for name, (src, tpu) in KERNEL_SOURCES.items()
     ]}))
     print(smi)

@@ -24,10 +24,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-import torch
-
 from .config import SpeedyConfig
 from .io.wave import read_wave, write_wave
+from .ops.kernels import resolve_device
 from .pipeline import check_engine, nonlinear_speedup
 
 _STREAMING = 'ROADMAP.md queue A, "Streaming"'
@@ -60,11 +59,13 @@ def compress_sound(
     engine: str = "stream",
     dump_files: dict | None = None,
     *,
-    device,
+    device="cuda",
 ) -> float:
-    """Read a WAV, speed it up on `device`, optionally write the result;
+    """Read a WAV, speed it up on `device` (the card by default; without
+    one that raises), optionally write the result;
     return the achieved compression ratio (input frames / output frames)
     like speedy_wave.cc's compress_sound (speedy_wave.cc:154-242)."""
+    device = resolve_device(device)
     samples, sr = read_wave(input_file)
     num_channels = 1 if samples.ndim == 1 else samples.shape[1]
     check_supported(engine, rate, dump_files or {}, num_channels)
@@ -118,9 +119,10 @@ def main(argv=None) -> int:
         "spectrogram": args.spectrogram_file,
         "normalized_spectrogram": args.normalized_spectrogram_file,
     }
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        ap.error(f"--device {args.device}: no CUDA device is available")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(f"--device: {e}")
 
     def run(speed, nonlinear, output="", rate=1.0, dump_files=None):
         return compress_sound(

@@ -1,0 +1,38 @@
+// cp.async helpers shared by the gather kernels: 4-byte copies from global to
+// shared memory that bypass registers, grouped and waited on per thread
+// (PTX ISA, "cp.async"). A 4-byte copy takes any float address, so rows and
+// spans that start at an arbitrary sample need no alignment.
+//
+// A thread's cp.async writes are visible to other threads only after the
+// thread has waited on their group and the block has passed a barrier.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace speedy {
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are still pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory above the default 48 KB must be granted to a kernel before
+// its launch.
+template <typename Kernel>
+inline cudaError_t allow_shared_bytes(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace speedy

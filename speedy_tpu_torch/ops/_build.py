@@ -1,16 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Every `speedy_tpu_torch/csrc/*.cu` is compiled by nvcc, at first use, into
-one shared library with a plain C interface, which ctypes loads. Each
-source compiles in its own nvcc process, all started together, and one
-more links them:
+Every `speedy_tpu_torch/csrc/*.cu` (with the `*.cuh` headers beside them)
+is compiled by nvcc, at first use, into one shared library with a plain C
+interface, which ctypes loads. Each source compiles in its own nvcc
+process, all started together, and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
     nvcc -shared -o libspeedy_kernels.so *.o
 
 The library lands in `speedy_tpu_torch/_build/<hash>/`, keyed on a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
+the sources, headers and flags, so an edited source rebuilds and an unchanged one is
 loaded as it is; the compiler's output (ptxas' registers and shared memory
 per kernel) is kept beside it in build.log. There is no fallback: a missing
 nvcc or a failed build raises.
@@ -45,6 +45,10 @@ _SIGNATURES = {
     "speedy_pitch_ssd": [_P] * 3 + [_I] * 7 + [_P],
     "speedy_gather_synth": [_P] * 7 + [_I] * 5 + [_P],
     "speedy_gather_rows": [_P] * 4 + [_I] * 4 + [_P],
+    "speedy_gather_rows_block": [_P] * 4 + [_I] * 6 + [_P],
+    "speedy_gather_rows_block_v2": [_P] * 4 + [_I] * 6 + [_P],
+    "speedy_gather_rows_pipelined": [_P] * 3 + [_I] * 4 + [_P],
+    "speedy_gather_rows_coalesced": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 
@@ -53,8 +57,9 @@ def sources() -> list:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

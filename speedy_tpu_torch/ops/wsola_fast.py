@@ -14,7 +14,10 @@ Four stages, every one parallel over utterances and output chunks:
      kernels.gather_synth); without one, as from time_scale_grid, the
      chunks' rows are gathered by kernel 4 (kernels.gather_rows) and
      interpolated, windowed and overlap-added in torch, as the JAX
-     package's per-row route does.
+     package's per-row route does. The JAX package's route for a ceiling
+     off the TPU, the block-span gather (kernel 5,
+     kernels.gather_rows_block) with the same torch steps, is
+     _synth_spans; no engine calls it.
 
 The tables here are built in float64 with numpy and cast once, with the
 same recipes as the JAX package, so both packages hold bitwise-equal
@@ -263,6 +266,32 @@ def wsola_grid_batch(
     )
 
 
+def _synth_source(xs, gain, valid, hop, num_chunks, max_period):
+    """The unfused routes' gather inputs (speedy_tpu/ops/wsola_fast.py:
+    593-601): the gain-scaled source padded by max_period in front and
+    2*max_period + taps + 2*hop behind (taps = max_period), and the rows
+    that reach the valid output, valid // hop + 2 (at most num_chunks)."""
+    src = xs if gain is None else xs * gain.to(xs.dtype)[:, None]
+    src_pad = torch.nn.functional.pad(src, (max_period, 3 * max_period + 2 * hop))
+    valid_rows = torch.clamp(valid // hop + 2, max=num_chunks).to(torch.int32)
+    return src_pad, valid_rows
+
+
+def _overlap_add(wide, a_f, win, valid, hop, capacity):
+    """Rows wide [B, K, 2*hop + 1] gathered at the chunks' integer positions
+    -> [B, capacity]: linear interpolation by a_f, the COLA window, the
+    half-slot overlap-add with slot 0 unwindowed, and the valid-length mask
+    (speedy_tpu/ops/wsola_fast.py:613-626, shared by both unfused routes)."""
+    B, K = a_f.shape
+    af = a_f[:, :, None]
+    raw = wide[:, :, :-1] * (1.0 - af) + wide[:, :, 1:] * af
+    rows = raw * win
+    slots = torch.cat([raw[:, :1, :hop], rows[:, 1:, :hop] + rows[:, :-1, hop:]], dim=1)
+    out = slots.reshape(B, K * hop)[:, :capacity]
+    keep = torch.arange(capacity, device=wide.device)[None, :] < valid[:, None]
+    return torch.where(keep, out, torch.zeros((), dtype=wide.dtype, device=wide.device))
+
+
 def _synth_per_row(
     xs: torch.Tensor,
     a_i: torch.Tensor,
@@ -276,28 +305,58 @@ def _synth_per_row(
     reference: bool,
 ) -> torch.Tensor:
     """Synthesis without a speed ceiling (speedy_tpu/ops/wsola_fast.py:
-    593-626): the gain-scaled source padded by max_period in front, rows
-    of 2*hop + 1 samples gathered at a_i + pad (kernel 4) for the chunks
-    that reach the valid output, then linear interpolation, the COLA
-    window, the half-slot overlap-add with slot 0 unwindowed, and the
-    valid-length mask. Returns [B, capacity]."""
-    B = xs.shape[0]
-    K = a_i.shape[1]
-    pad_front = max_period
-    src = xs if gain is None else xs * gain.to(xs.dtype)[:, None]
-    # Back padding as the JAX package's: 2*maxp + taps + 2*hop, taps = maxp.
-    src_pad = torch.nn.functional.pad(src, (pad_front, 3 * max_period + 2 * hop))
-    # Rows past valid // hop + 1 feed only masked output.
-    valid_rows = torch.clamp(valid // hop + 2, max=K).to(torch.int32)
+    602-605): rows of 2*hop + 1 samples gathered one by one (kernel 4) from
+    the padded source for the chunks that reach the valid output, then
+    _overlap_add. Returns [B, capacity]."""
+    src_pad, valid_rows = _synth_source(xs, gain, valid, hop, a_i.shape[1], max_period)
     gather = kernels.gather_rows_reference if reference else kernels.gather_rows
-    wide = gather(src_pad, a_i + pad_front, 2 * hop + 1, valid_rows)
-    af = a_f[:, :, None]
-    raw = wide[:, :, :-1] * (1.0 - af) + wide[:, :, 1:] * af
-    rows = raw * win
-    slots = torch.cat([raw[:, :1, :hop], rows[:, 1:, :hop] + rows[:, :-1, hop:]], dim=1)
-    out = slots.reshape(B, K * hop)[:, :capacity]
-    keep = torch.arange(capacity, device=xs.device)[None, :] < valid[:, None]
-    return torch.where(keep, out, torch.zeros((), dtype=xs.dtype, device=xs.device))
+    wide = gather(src_pad, a_i + max_period, 2 * hop + 1, valid_rows)
+    return _overlap_add(wide, a_f, win, valid, hop, capacity)
+
+
+# Rows a block of the block-span gather: the JAX engine's span_rows
+# (speedy_tpu/ops/wsola_fast.py:283-288).
+SPAN_ROWS = 128
+
+
+def span_width(
+    span_rows: int, hop: int, max_speed_plan: float, max_period: int, width: int
+) -> int:
+    """The block-span gather's w_span under a speed ceiling
+    (speedy_tpu/ops/wsola_fast.py:547-553): span_rows - 1 chunk steps of at
+    most ceil(hop * max_speed_plan) samples, the phase snap's max_period,
+    one row of width and 32 samples of slack, rounded up to 1024."""
+    need = (span_rows - 1) * int(np.ceil(hop * max_speed_plan)) + max_period + width + 32
+    return -(-need // 1024) * 1024
+
+
+def _synth_spans(
+    xs: torch.Tensor,
+    a_i: torch.Tensor,
+    a_f: torch.Tensor,
+    win: torch.Tensor,
+    gain: Optional[torch.Tensor],
+    valid: torch.Tensor,
+    hop: int,
+    capacity: int,
+    max_period: int,
+    max_speed_plan: float,
+) -> torch.Tensor:
+    """Synthesis through the block-span gather: the JAX package's route for
+    a speed ceiling off the TPU (speedy_tpu/ops/wsola_fast.py:606-626),
+    with SPAN_ROWS rows a block and w_span planned from the ceiling
+    (span_width). Its gather is kernel 5 (kernels.gather_rows_block, the
+    counterpart of speedy_tpu/ops/wsola_fast.py:149-252's
+    _gather_rows_spans), whose rows past valid_rows are zeros whatever the
+    starts' spread. The port's engines take kernel 3 for a ceiling, as the
+    TPU does; this route serves the tests and the smoke run. Returns
+    [B, capacity]."""
+    width = 2 * hop + 1
+    w_span = span_width(SPAN_ROWS, hop, max_speed_plan, max_period, width)
+    src_pad, valid_rows = _synth_source(xs, gain, valid, hop, a_i.shape[1], max_period)
+    wide = kernels.gather_rows_block(
+        src_pad, a_i + max_period, width, SPAN_ROWS, w_span, valid_rows)
+    return _overlap_add(wide, a_f, win, valid, hop, capacity)
 
 
 def time_scale_grid(
@@ -310,12 +369,13 @@ def time_scale_grid(
     capacity: Optional[int] = None,
     max_speed_bound: Optional[float] = None,
     *,
-    device,
+    device="cuda",
     period_grid: Optional[torch.Tensor] = None,
     reference: bool = False,
 ) -> WsolaResult:
     """Grid-parallel time-scaling of one mono utterance x [L] (float32, a
-    tensor or an array) at per-frame speeds [F], on `device`.
+    tensor or an array) at per-frame speeds [F], on `device` (the card
+    unless the caller asks for the CPU; without a card, "cuda" raises).
 
     max_speed_bound: optional planner ceiling on instantaneous speed
     (speeds are clamped to it); selects the fused synthesis (kernel 3).
@@ -323,7 +383,7 @@ def time_scale_grid(
     period_grid [n_grid] (optional) replaces the pitch search (see
     wsola_grid_batch); reference=True runs the kernels' plain versions.
     Returns WsolaResult with output [capacity] and 0-dim valid_length."""
-    dev = torch.device(device)
+    dev = kernels.resolve_device(device)
     if dev.type == "cuda":
         no_tf32()
     x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()

@@ -23,6 +23,7 @@ import torch
 from . import config as C
 from .config import SpeedyConfig
 from .ops.analysis import analyze
+from .ops.kernels import resolve_device
 from .ops.speed import speed_from_tension
 from .ops.wsola_fast import time_scale_grid
 
@@ -80,10 +81,12 @@ def nonlinear_speedup(
     min_speed_bound: Optional[float] = None,
     engine: str = "scan",
     *,
-    device,
+    device="cuda",
     reference: bool = False,
 ) -> SpeedupResult:
-    """Speedy nonlinear speedup of one mono utterance on `device`.
+    """Speedy nonlinear speedup of one mono utterance on `device` (the
+    card unless the caller asks for the CPU; without a card, "cuda"
+    raises).
 
     x may be int16 (scaled by 2^15 like speedyAddDataShort) or float in
     ±1; the output has x's type. The default duration_feedback_strength is
@@ -93,6 +96,7 @@ def nonlinear_speedup(
     plain versions (on any device).
     """
     check_engine(engine)
+    device = resolve_device(device)
     x = np.asarray(x)
     if nonlinear_factor == 0.0:
         return linear_time_scale(
@@ -122,12 +126,13 @@ def linear_time_scale(
     speed: float,
     engine: str = "scan",
     *,
-    device,
+    device="cuda",
     reference: bool = False,
 ) -> SpeedupResult:
     """Pure WSOLA at constant speed (original-libsonic behavior) on
     `device`; engine and reference as for nonlinear_speedup."""
     check_engine(engine)
+    device = resolve_device(device)
     x = np.asarray(x)
     xf = torch.as_tensor(_as_float(x), device=device)
     speeds = torch.tensor([speed], dtype=torch.float32, device=xf.device)
