@@ -16,7 +16,11 @@ the same call through the plain versions:
     pass-through; time_scale_grid with a speed ceiling against without
     one), and its CLI in a subprocess against the same call in process;
   - the block-span synthesis route (kernel 5) against kernel 3 on the
-    bounded 60 s run's chunk positions and on the batch step's.
+    bounded 60 s run's chunk positions and on the batch step's;
+  - the experiment probes (speedy_tpu_torch/experiments: kernels 9, 12,
+    13 and 15), each probe's question once through its kernel, then the
+    kernel against its plain version and the library call, then its
+    times.
 Prints one line per phase, a JSON line of the kernels' launches, errors,
 times and bounds, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
@@ -55,15 +59,33 @@ KERNEL_SOURCES = {
                               "speedy_tpu/ops/pallas_coalesced.py:102"),
     "gather_rows_block_v2": ("speedy_tpu_torch/csrc/gather_block.cu",
                              "experiments/gather_v2.py:75"),
+    "bf16_split_matmul": ("speedy_tpu_torch/csrc/bf16_split.cu",
+                          "experiments/bf16_split_probe.py:70"),
+    "narrow_operand_sum": ("speedy_tpu_torch/csrc/narrow_operands.cu",
+                           "experiments/lane1_blockspec_probe.py:21"),
+    "lane_roll": ("speedy_tpu_torch/csrc/lane_roll.cu",
+                  "experiments/multitile_roll_probe.py:26"),
+    "transpose_cols": ("speedy_tpu_torch/csrc/transpose.cu",
+                       "experiments/mosaic_transpose_probe.py:23"),
+}
+# The probes' kernels and the speedy_tpu_torch/experiments module that
+# runs each; no user path launches them.
+PROBE_KERNELS = {
+    "bf16_split_matmul": "bf16_split_probe",
+    "narrow_operand_sum": "lane1_blockspec_probe",
+    "lane_roll": "multitile_roll_probe",
+    "transpose_cols": "mosaic_transpose_probe",
 }
 # The batched path's kernels; the single-utterance path runs pitch_ssd and
 # gather_rows.
 BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
 SINGLE_KERNELS = ("pitch_ssd", "gather_rows")
-# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, and
-# float32 FLOP/s outside the tensor cores (an FMA is 2 FLOP).
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores (an FMA is 2 FLOP), and the
+# tensor cores' dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 CORR = ("pitch_ea", "pitch_es", "pitch_inv", "pitch_band")
 STEP_WINDOWS, STEPS_PER_WINDOW = 5, 10
 
@@ -206,10 +228,11 @@ def assert_period_flips_are_ties(segs, per_a, per_b, taps, minp, maxp,
               float(per_a[b, g]), float(per_b[b, g]), margin)
 
 
-def bound(nbytes: float, flops: float = 0.0):
+def bound(nbytes: float, flops: float = 0.0, flop_per_s: float = F32_FLOP_PER_S):
     """The least time the card could take for work that moves nbytes and
-    does flops float32 operations: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    does flops operations at flop_per_s (float32 by default): (ms, "bytes"
+    or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -743,6 +766,80 @@ def span_route_check(kernels, wsola_fast, tables, xs, lengths, speeds, gain, cfg
 
 
 # ---------------------------------------------------------------------------
+# The experiment probes: kernels 9, 12, 13 and 15
+# ---------------------------------------------------------------------------
+
+
+def probe_bound(name: str, row: dict):
+    """(bytes, bound ms, "bytes" or "operations") of one probe check row:
+    inputs read once and outputs written once, the words the function
+    needs; kernel 9's passes of 2*M*N*K over the tensor cores' bf16 peak
+    (3 for a split, 1 for default) or, for highest, float32 FMA's."""
+    if name == "bf16_split_matmul":
+        M, K, N, mode = row["M"], row["K"], row["N"], row["mode"]
+        nbytes = 4 * (M * K + K * N + M * N)
+        if mode == "highest":
+            return (nbytes, *bound(nbytes, 2.0 * M * N * K))
+        passes = 1 if mode == "default" else 3
+        return (nbytes, *bound(nbytes, passes * 2.0 * M * N * K, BF16_FLOP_PER_S))
+    if name == "transpose_cols":
+        F, cols = row["F"], 8  # 8 columns in, 8 rows out
+        eye_words, flops = {"swap": (0, 0.0), "dot_rhsT": (cols * cols, 2.0 * cols * cols * F),
+                            "dot_lhsT": (F * F, 2.0 * cols * F * F)}[row["form"]]
+        nbytes = 4 * (2 * cols * F + eye_words)
+        return (nbytes, *bound(nbytes, flops))
+    if name == "lane_roll":
+        nbytes = 4 * 2 * row["R"] * row["G"]
+        return (nbytes, *bound(nbytes))
+    B, rows = row["shape"][0], 8  # narrow_operand_sum: 3 x 8 words in, 8 out
+    nbytes = 4 * (3 * B * rows + B * rows)
+    return (nbytes, *bound(nbytes, 3.0 * B * rows))
+
+
+def probe_headline(name: str, rows: list) -> dict:
+    """The check row each probe kernel reports in the kernels line: kernel
+    9's conv3 at kernel 1's DFT product, kernel 15's swap form, kernel 12's
+    narrow [4096, 1] layout, kernel 13's one row."""
+    pick = {
+        "bf16_split_matmul": lambda r: r["mode"] == "conv3" and r["case"].startswith("kernel 1"),
+        "transpose_cols": lambda r: r["form"] == "swap",
+        "narrow_operand_sum": lambda r: r["shape"][-1] == 1,
+        "lane_roll": lambda r: True,
+    }[name]
+    return next(r for r in rows if pick(r))
+
+
+def probe_phase(kernels, dev) -> dict:
+    """Kernels 9, 12, 13 and 15 through their experiment entry points: each
+    probe's check() with the launch counts set to 0 just before and read
+    just after, which must show its kernel and no other. check() first
+    asks the probe's question once through the kernel (its answer pass,
+    whose launches each row records), then holds the kernel to its plain
+    version and the library call, raising on a difference, then times it.
+    Each row gets its bound. Returns per kernel its headline row with the
+    launches of the probe's answer passes; emits the phase's wall
+    seconds."""
+    import importlib
+
+    out = {}
+    t0 = time.perf_counter()
+    for name, module in PROBE_KERNELS.items():
+        mod = importlib.import_module(f"speedy_tpu_torch.experiments.{module}")
+        counts, rows = path_launches(kernels, lambda: mod.check(dev))
+        check(only(counts, (name,)), module, "launches", counts)
+        answered = sum(r["launches"] for r in rows)
+        check(0 < answered <= counts[name], module, "answer launches", answered, counts)
+        for row in rows:
+            row["bytes"], row["bound_ms"], row["bound_by"] = probe_bound(name, row)
+            emit("probe_check", kernel=name, **row)
+        emit("probe", probe=module, kernel=name, launches=answered,
+             launches_with_timing=counts[name])
+        out[name] = dict(probe_headline(name, rows), launches=answered)
+    emit("probes", seconds=time.perf_counter() - t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The single-utterance path against the plain path
 # ---------------------------------------------------------------------------
 
@@ -1019,6 +1116,9 @@ def main() -> int:
     for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced"):
         results[name] = gathers[name]
 
+    # ---- 3c. the experiment probes (kernels 9, 12, 13, 15) ----
+    results.update(probe_phase(kernels, dev))
+
     # ---- 4. the main path ----
     rate, cap_factor = 3.5, 1.33
     engine = SpeedupEngine(cfg16, rate, 1.0, 0.1, capacity_factor=cap_factor).to(dev)
@@ -1170,14 +1270,17 @@ def main() -> int:
                                 bench_families(20 * 16000, 16000)[0], dev))
 
     # Launches: the batched path's run for its kernels, the single
-    # nonlinear run for kernel 4, the 60 s span route run for kernel 5, and
-    # the gather phase's runs at shape A for kernels 6-8. Times, errors and
-    # bounds: kernels 1-3 at the batch shape, kernel 4 at its path's shape,
-    # kernels 5-8 at shape A.
+    # nonlinear run for kernel 4, the 60 s span route run for kernel 5, the
+    # gather phase's runs at shape A for kernels 6-8, and each probe's
+    # answer passes for kernels 9, 12, 13 and 15 (the batch step and the
+    # single call launch none of them). Times, errors and bounds: kernels 1-3 at the
+    # batch shape, kernel 4 at its path's shape, kernels 5-8 at shape A,
+    # the probes at probe_headline's rows.
     launches["gather_rows"] = l_nl["gather_rows"]
     launches["gather_rows_block"] = l_span["gather_rows_block"]
     results["gather_rows_block"] = gathers["gather_rows_block"]
-    for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced"):
+    for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced",
+                 *PROBE_KERNELS):
         launches[name] = results[name]["launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

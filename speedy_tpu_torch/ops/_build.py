@@ -49,6 +49,10 @@ _SIGNATURES = {
     "speedy_gather_rows_block_v2": [_P] * 4 + [_I] * 6 + [_P],
     "speedy_gather_rows_pipelined": [_P] * 3 + [_I] * 4 + [_P],
     "speedy_gather_rows_coalesced": [_P] * 4 + [_I] * 5 + [_P],
+    "speedy_bf16_split_matmul": [_P] * 3 + [_I] * 4 + [_P],
+    "speedy_narrow_operand_sum": [_P] * 4 + [_I] * 3 + [_F, _P],
+    "speedy_lane_roll": [_P] * 2 + [_I] * 3 + [_P],
+    "speedy_transpose_cols": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

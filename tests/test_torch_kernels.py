@@ -66,7 +66,8 @@ def test_cuda_errors_raise():
 
 def test_build_keys_on_sources():
     names = [p.name for p in _build.sources()]
-    assert {"analysis.cu", "pitch.cu", "synth.cu", "gather_rows.cu"} <= set(names)
+    assert {"analysis.cu", "pitch.cu", "synth.cu", "gather_rows.cu", "bf16_split.cu",
+            "narrow_operands.cu", "lane_roll.cu", "transpose.cu"} <= set(names)
     assert len(_build.source_hash()) == 16
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
