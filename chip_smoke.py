@@ -17,10 +17,11 @@ the same call through the plain versions:
     one), and its CLI in a subprocess against the same call in process;
   - the block-span synthesis route (kernel 5) against kernel 3 on the
     bounded 60 s run's chunk positions and on the batch step's;
-  - the experiment probes (speedy_tpu_torch/experiments: kernels 9, 12,
-    13 and 15), each probe's question once through its kernel, then the
-    kernel against its plain version and the library call, then its
-    times.
+  - the experiment probes (speedy_tpu_torch/experiments: kernels 9-15),
+    each probe's question once through its kernel, then the kernel
+    against its plain version and the library call, then its times; the
+    bisection probes (kernels 10, 11, 14) time each stage of kernels 5 and
+    3's bodies and hold the last stage to kernels 5 and 3.
 Prints one line per phase, a JSON line of the kernels' launches, errors,
 times and bounds, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
@@ -61,10 +62,16 @@ KERNEL_SOURCES = {
                              "experiments/gather_v2.py:75"),
     "bf16_split_matmul": ("speedy_tpu_torch/csrc/bf16_split.cu",
                           "experiments/bf16_split_probe.py:70"),
+    "gather_bisect": ("speedy_tpu_torch/csrc/gather_bisect.cu",
+                      "experiments/gather_bisect.py:62"),
+    "synth_bisect": ("speedy_tpu_torch/csrc/synth_bisect.cu",
+                     "experiments/synth_bisect.py:24"),
     "narrow_operand_sum": ("speedy_tpu_torch/csrc/narrow_operands.cu",
                            "experiments/lane1_blockspec_probe.py:21"),
     "lane_roll": ("speedy_tpu_torch/csrc/lane_roll.cu",
                   "experiments/multitile_roll_probe.py:26"),
+    "bisect_span_rows": ("speedy_tpu_torch/csrc/gather_bisect.cu",
+                         "experiments/bisect_kernel.py:57"),
     "transpose_cols": ("speedy_tpu_torch/csrc/transpose.cu",
                        "experiments/mosaic_transpose_probe.py:23"),
 }
@@ -72,10 +79,16 @@ KERNEL_SOURCES = {
 # runs each; no user path launches them.
 PROBE_KERNELS = {
     "bf16_split_matmul": "bf16_split_probe",
+    "gather_bisect": "gather_bisect",
+    "synth_bisect": "synth_bisect",
     "narrow_operand_sum": "lane1_blockspec_probe",
     "lane_roll": "multitile_roll_probe",
+    "bisect_span_rows": "bisect_kernel",
     "transpose_cols": "mosaic_transpose_probe",
 }
+# Kernels a probe launches besides its own: gather_bisect holds its full
+# stage to kernel 5, the production function it stops.
+PROBE_ORACLES = {"gather_bisect": ("gather_rows_block",)}
 # The batched path's kernels; the single-utterance path runs pitch_ssd and
 # gather_rows.
 BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
@@ -766,7 +779,7 @@ def span_route_check(kernels, wsola_fast, tables, xs, lengths, speeds, gain, cfg
 
 
 # ---------------------------------------------------------------------------
-# The experiment probes: kernels 9, 12, 13 and 15
+# The experiment probes: kernels 9-15
 # ---------------------------------------------------------------------------
 
 
@@ -774,7 +787,13 @@ def probe_bound(name: str, row: dict):
     """(bytes, bound ms, "bytes" or "operations") of one probe check row:
     inputs read once and outputs written once, the words the function
     needs; kernel 9's passes of 2*M*N*K over the tensor cores' bf16 peak
-    (3 for a split, 1 for default) or, for highest, float32 FMA's."""
+    (3 for a split, 1 for default) or, for highest, float32 FMA's. The
+    bisection probes count their stage's words from this run's data
+    (out_words, read_words: each span sample a stage's output comes from,
+    once)."""
+    if name in ("gather_bisect", "synth_bisect", "bisect_span_rows"):
+        nbytes = 4 * (row["out_words"] + row["read_words"])
+        return (nbytes, *bound(nbytes))
     if name == "bf16_split_matmul":
         M, K, N, mode = row["M"], row["K"], row["N"], row["mode"]
         nbytes = 4 * (M * K + K * N + M * N)
@@ -799,9 +818,13 @@ def probe_bound(name: str, row: dict):
 def probe_headline(name: str, rows: list) -> dict:
     """The check row each probe kernel reports in the kernels line: kernel
     9's conv3 at kernel 1's DFT product, kernel 15's swap form, kernel 12's
-    narrow [4096, 1] layout, kernel 13's one row."""
+    narrow [4096, 1] layout, kernel 13's one row, and the bisection probes'
+    last stage (kernel 11's at the 6.0x span)."""
     pick = {
         "bf16_split_matmul": lambda r: r["mode"] == "conv3" and r["case"].startswith("kernel 1"),
+        "gather_bisect": lambda r: r["stage"] == "full",
+        "synth_bisect": lambda r: r["stage"] == "full" and r["max_speed"] == 6.0,
+        "bisect_span_rows": lambda r: r["mode"] == "full",
         "transpose_cols": lambda r: r["form"] == "swap",
         "narrow_operand_sum": lambda r: r["shape"][-1] == 1,
         "lane_roll": lambda r: True,
@@ -810,9 +833,10 @@ def probe_headline(name: str, rows: list) -> dict:
 
 
 def probe_phase(kernels, dev) -> dict:
-    """Kernels 9, 12, 13 and 15 through their experiment entry points: each
-    probe's check() with the launch counts set to 0 just before and read
-    just after, which must show its kernel and no other. check() first
+    """Kernels 9-15 through their experiment entry points: each probe's
+    check() with the launch counts set to 0 just before and read just
+    after, which must show its kernel and no other (but PROBE_ORACLES'
+    production kernel). check() first
     asks the probe's question once through the kernel (its answer pass,
     whose launches each row records), then holds the kernel to its plain
     version and the library call, raising on a difference, then times it.
@@ -826,7 +850,7 @@ def probe_phase(kernels, dev) -> dict:
     for name, module in PROBE_KERNELS.items():
         mod = importlib.import_module(f"speedy_tpu_torch.experiments.{module}")
         counts, rows = path_launches(kernels, lambda: mod.check(dev))
-        check(only(counts, (name,)), module, "launches", counts)
+        check(only(counts, (name, *PROBE_ORACLES.get(name, ()))), module, "launches", counts)
         answered = sum(r["launches"] for r in rows)
         check(0 < answered <= counts[name], module, "answer launches", answered, counts)
         for row in rows:
@@ -837,6 +861,62 @@ def probe_phase(kernels, dev) -> dict:
         out[name] = dict(probe_headline(name, rows), launches=answered)
     emit("probes", seconds=time.perf_counter() - t0)
     return out
+
+
+def check_bisect_edges(kernels, dev) -> None:
+    """Kernels 10, 11 and 14 against their plain versions off the
+    experiments' shapes: blocks of 100 rows, K = 300, a dead utterance
+    (n_valid 0) and a half-live one, negative starts and starts past L (the
+    flat view reads zeros before it, and on into the next utterance or
+    zeros past an utterance's end), a span too short for its block (rows
+    past w_rows select zeros), hops 100 (one tile, no whole-tile roll) and
+    256 (no lane shift), and kernel 14's picks below 0 and past w_rows.
+    Bitwise, but kernel 11's interp and full within 1e-6."""
+    import torch
+
+    rng = np.random.default_rng(4)
+    B, L, K, R = 3, 50000, 300, 100
+    x = torch.as_tensor(rng.standard_normal((B, L)).astype(np.float32), device=dev)
+    steps = rng.integers(90, 180, (B, K))
+    steps[1] = rng.integers(400, 700, K)  # a block spreads past its span; rows run past L
+    starts = torch.as_tensor((np.cumsum(steps, axis=1) - 400).astype(np.int32), device=dev)
+    af = torch.as_tensor(rng.uniform(0, 1, (B, K)).astype(np.float32), device=dev)
+    n_valid = torch.tensor([300, 150, 0], dtype=torch.int32, device=dev)
+    worst, cases = 0.0, 0
+
+    def hold(name, got, want, tol=0.0):
+        nonlocal worst, cases
+        d = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and (torch.equal(got, want) or d <= tol),
+              "bisect edges", name, d)
+        worst, cases = max(worst, d), cases + 1
+
+    for width, w_span in ((321, 49152), (200, 40960)):
+        for stage in kernels.GATHER_BISECT_STAGES:
+            kw = dict(width=width, rows_per_block=R, w_span=w_span)
+            hold(f"gather_bisect {stage} width {width}",
+                 kernels.gather_bisect(x, starts, n_valid, stage, **kw),
+                 kernels.gather_bisect_reference(x, starts, n_valid, stage, **kw))
+    for hop, w_span in ((100, 12288), (256, 24576)):
+        for stage in kernels.SYNTH_BISECT_STAGES:
+            kw = dict(hop=hop, rows_per_block=R, w_span=w_span)
+            hold(f"synth_bisect {stage} hop {hop}",
+                 kernels.synth_bisect(x, starts, af, n_valid, stage, **kw),
+                 kernels.synth_bisect_reference(x, starts, af, n_valid, stage, **kw),
+                 1e-6 if stage in ("interp", "full") else 0.0)
+    w_rows = 40
+    x2 = torch.as_tensor(rng.standard_normal((2 * 100 + 20, 128)).astype(np.float32), device=dev)
+    nvb = torch.tensor([2, 1], dtype=torch.int32, device=dev)
+    bases = torch.as_tensor(rng.integers(-8, 120, (2, 3)).astype(np.int32), device=dev)
+    for R14, modes in ((8, ("dma", "dot", "full", "none")), (12, ("dot", "full"))):
+        q8k = torch.as_tensor(rng.integers(-3, w_rows + 3, (2, 3, R14 * 4)).astype(np.int32),
+                              device=dev)
+        for mode in modes:
+            kw = dict(rows_per_block=R14, w_rows=w_rows, nt=4, length_rows=100)
+            hold(f"bisect_span_rows {mode} R {R14}",
+                 kernels.bisect_span_rows(nvb, bases, q8k, x2, mode, **kw),
+                 kernels.bisect_span_rows_reference(nvb, bases, q8k, x2, mode, **kw))
+    emit("bisect_edges", cases=cases, max_abs_err=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -1116,8 +1196,9 @@ def main() -> int:
     for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced"):
         results[name] = gathers[name]
 
-    # ---- 3c. the experiment probes (kernels 9, 12, 13, 15) ----
+    # ---- 3c. the experiment probes (kernels 9-15) ----
     results.update(probe_phase(kernels, dev))
+    check_bisect_edges(kernels, dev)
 
     # ---- 4. the main path ----
     rate, cap_factor = 3.5, 1.33
@@ -1272,8 +1353,8 @@ def main() -> int:
     # Launches: the batched path's run for its kernels, the single
     # nonlinear run for kernel 4, the 60 s span route run for kernel 5, the
     # gather phase's runs at shape A for kernels 6-8, and each probe's
-    # answer passes for kernels 9, 12, 13 and 15 (the batch step and the
-    # single call launch none of them). Times, errors and bounds: kernels 1-3 at the
+    # answer passes for kernels 9-15 (the batch step and the single call
+    # launch none of them). Times, errors and bounds: kernels 1-3 at the
     # batch shape, kernel 4 at its path's shape, kernels 5-8 at shape A,
     # the probes at probe_headline's rows.
     launches["gather_rows"] = l_nl["gather_rows"]

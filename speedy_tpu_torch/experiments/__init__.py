@@ -2,12 +2,16 @@
 reach a Pallas kernel, under the same file names:
 
   bf16_split_probe        kernel 9   kernels.bf16_split_matmul
+  gather_bisect           kernel 10  kernels.gather_bisect
+  synth_bisect            kernel 11  kernels.synth_bisect
   lane1_blockspec_probe   kernel 12  kernels.narrow_operand_sum
   multitile_roll_probe    kernel 13  kernels.lane_roll
+  bisect_kernel           kernel 14  kernels.bisect_span_rows
   mosaic_transpose_probe  kernel 15  kernels.transpose_cols
 
 Each puts its experiment's question to the card and prints the answer, one
-JSON line a case:
+JSON line a case (bisect_kernel also takes the experiment's `which R
+w_rows`):
 
     python -m speedy_tpu_torch.experiments.<probe> [--device cuda]
 
@@ -95,6 +99,31 @@ def device_ms(fn: Callable, device: torch.device, reps: int = 20) -> Optional[fl
     if not events:
         return None
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+
+
+def add_increments(rows: list) -> list:
+    """rows with increment_ms and increment_device_ms: each row's ms and
+    device_ms less the row before's (None for the first row or where a
+    time is None), what each stage adds to the one before."""
+    for key in ("ms", "device_ms"):
+        rows[0][f"increment_{key}"] = None
+        for prev, row in zip(rows, rows[1:]):
+            a, b = prev[key], row[key]
+            row[f"increment_{key}"] = None if a is None or b is None else b - a
+    return rows
+
+
+def covered(first: torch.Tensor, length, total: int) -> int:
+    """How many of the words [0, total) the intervals [first, first +
+    length) cover together: what a function that reads them must read,
+    each word once. length is an int or a tensor shaped like first."""
+    first = first.reshape(-1).long()
+    end = (first + length).reshape(-1) if torch.is_tensor(length) else first + length
+    one = torch.ones_like(first)
+    d = torch.zeros(total + 1, dtype=torch.long, device=first.device)
+    d.index_add_(0, first.clamp(0, total), one)
+    d.index_add_(0, end.clamp(0, total), -one)
+    return int((d.cumsum(0)[:total] > 0).sum())
 
 
 def launched(name: str, fn: Callable):

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "speedy_narrow_operand_sum": [_P] * 4 + [_I] * 3 + [_F, _P],
     "speedy_lane_roll": [_P] * 2 + [_I] * 3 + [_P],
     "speedy_transpose_cols": [_P] * 3 + [_I] * 3 + [_P],
+    "speedy_gather_bisect": [_P] * 4 + [_I] * 8 + [_P],
+    "speedy_synth_bisect": [_P] * 6 + [_I] * 9 + [_P],
+    "speedy_bisect_span_rows": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 
