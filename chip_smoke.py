@@ -15,6 +15,11 @@ the same call through the plain versions:
     at 16 kHz, 3.5x; linear_time_scale at 44.1 kHz, 2.0x and the 1.0x
     pass-through; time_scale_grid with a speed ceiling against without
     one), and its CLI in a subprocess against the same call in process;
+  - the sequential speed law's kernel (csrc/speed_law.cu), bitwise equal
+    to its plain loop on the card for the 60 s call's tension, the 0.7x
+    sweep's batch, seeded [128, 999] tension at 3 rates x 2 feedbacks x 2
+    nonlinear factors, and carried-in durations; its host, event and
+    profiler times beside the plain loop's;
   - the block-span synthesis route (kernel 5) against kernel 3 on the
     bounded 60 s run's chunk positions and on the batch step's;
   - the experiment probes (speedy_tpu_torch/experiments: kernels 9-15),
@@ -74,6 +79,8 @@ KERNEL_SOURCES = {
                          "experiments/bisect_kernel.py:57"),
     "transpose_cols": ("speedy_tpu_torch/csrc/transpose.cu",
                        "experiments/mosaic_transpose_probe.py:23"),
+    # No Pallas kernel: the JAX package's jitted lax.scan of the law.
+    "speed_law": ("speedy_tpu_torch/csrc/speed_law.cu", "speedy_tpu/ops/speed.py:49"),
 }
 # The probes' kernels and the speedy_tpu_torch/experiments module that
 # runs each; no user path launches them.
@@ -89,10 +96,13 @@ PROBE_KERNELS = {
 # Kernels a probe launches besides its own: gather_bisect holds its full
 # stage to kernel 5, the production function it stops.
 PROBE_ORACLES = {"gather_bisect": ("gather_rows_block",)}
-# The batched path's kernels; the single-utterance path runs pitch_ssd and
-# gather_rows.
+# The batched path's kernels (and the sequential speed law at or below
+# 1x); the single-utterance nonlinear path's, and its grid engine's alone
+# (linear_time_scale and time_scale_grid run no speed law).
 BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
-SINGLE_KERNELS = ("pitch_ssd", "gather_rows")
+SLOW_BATCH_KERNELS = (*BATCH_KERNELS, "speed_law")
+SINGLE_KERNELS = ("pitch_ssd", "gather_rows", "speed_law")
+SINGLE_ENGINE_KERNELS = ("pitch_ssd", "gather_rows")
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s,
 # float32 FLOP/s outside the tensor cores (an FMA is 2 FLOP), and the
 # tensor cores' dense bf16 FLOP/s.
@@ -634,8 +644,12 @@ def check_gather(kernels, name, label, x, starts, width, n_valid=None, same_as=N
     nbytes = 4 * (rows.numel() + covered_samples(starts, width, live, L) + starts.numel()
                   + (0 if n_valid is None else B))
     bound_ms, bound_by = bound(nbytes)
+    # Device time alone (torch.profiler): a call's CUDA-event time also holds
+    # the host's launch path, tens of microseconds for a ctypes launch.
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=library_ms, launches=launches[name])
+                  bound_by=bound_by, library_ms=library_ms, launches=launches[name],
+                  device_ms=device_profile(call)[0],
+                  library_device_ms=device_profile(library)[0])
     emit("kernel", kernel=name, shape=label, B=B, K=K, width=width, L=L,
          rows_live=int(live.sum()), bytes=nbytes, **result)
     return result, rows
@@ -1048,8 +1062,10 @@ def host_ms(fn, reps: int = 5) -> float:
 
 def single_split_ms(x, cfg, rate, dev):
     """Host wall ms (median of 5) of one nonlinear_speedup call on x and of
-    its three parts: analysis, the sequential speed law, and the grid
-    engine (time_scale_grid, with the read-back of its output)."""
+    its three parts: analysis, the sequential speed law (the kernel, with
+    the read-back of its speeds), and the grid engine (time_scale_grid,
+    with the read-back of its output); beside them the plain loop of the
+    speed law on the card, one call after a warm-up call."""
     import torch
     from speedy_tpu_torch import pipeline
     from speedy_tpu_torch.ops import analysis, speed, wsola_fast
@@ -1058,14 +1074,98 @@ def single_split_ms(x, cfg, rate, dev):
     tension = analysis.analyze(xt, cfg, integer_step=True).tension
     speeds = speed.speed_from_tension(tension[None], rate, 0.1, 1.0)[0][0]
     msb = max(0.01, float(speeds.min()) * 0.999)
+    law = lambda reference: speed.speed_from_tension(
+        tension[None], rate, 0.1, 1.0, reference=reference)[0].cpu()
     return {
         "call": host_ms(lambda: pipeline.nonlinear_speedup(
             x, cfg, rate, 1.0, 0.1, engine="grid", device=dev)),
         "analysis": host_ms(lambda: analysis.analyze(xt, cfg, integer_step=True)),
-        "speed_law": host_ms(lambda: speed.speed_from_tension(tension[None], rate, 0.1, 1.0)),
+        "speed_law": host_ms(lambda: law(False)),
+        "speed_law_plain_loop": host_ms(lambda: law(True), reps=1),
         "engine": host_ms(lambda: wsola_fast.time_scale_grid(
             xt, speeds, cfg, min_speed_bound=msb, device=dev).output.cpu()),
     }
+
+
+# ---------------------------------------------------------------------------
+# The sequential speed law
+# ---------------------------------------------------------------------------
+
+# Float32 operations a frame of the law: the base law (3), the feedback
+# term (4), the two durations (3, one a division) and the interpolation (2).
+LAW_FLOP_PER_FRAME = 12
+# The frame-to-frame chain: cur - des, fb * it, the maximum, + base, a
+# division, cur + it. Counting the IEEE division as the 5 dependent steps
+# of its reciprocal-and-refine sequence, 10 dependent float32 operations
+# of 4 cycles each: an estimate from assumed latencies, not a measurement.
+LAW_CHAIN_CYCLES = 40
+LAW_CASES = [(r, fb, nl) for r in (0.7, 1.0, 3.5) for fb in (0.0, 0.1) for nl in (0.5, 1.0)]
+
+
+def hold_speed_law(kernels, label, tension, rate, fb, nl, durations=None) -> None:
+    """kernels.speed_law against its plain loop on the same card inputs:
+    speeds and both final durations bitwise equal (torch.equal)."""
+    import torch
+
+    got = kernels.speed_law(tension, rate, fb, nl, durations)
+    want = kernels.speed_law_reference(tension, rate, fb, nl, durations)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("speeds", "current", "desired"), (got[0], *got[1]),
+                          (want[0], *want[1])):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()), label, part,
+              "shape or non-finite", tuple(g.shape))
+        check(torch.equal(g, w), label, part, "differs from the plain loop",
+              int((g != w).sum()), float((g - w).abs().max()))
+
+
+def speed_law_phase(kernels, single_args, sweep_args, dev, sm_clock_mhz) -> dict:
+    """The speed-law kernel held bitwise to its plain loop on the card: on
+    the 60 s single call's own tension and the 0.7x sweep's batch (the
+    arguments those runs passed kernels.speed_law), on seeded tension
+    [128, 999] at LAW_CASES, and with carried-in durations. Times at the
+    single call's tension and at [128, 999], 3.5x: the kernel's CUDA-event
+    ms (median of 10), its device ms (torch.profiler), the plain loop's ms
+    (one call), the bound of bytes and operations and the chain-latency
+    estimate T * LAW_CHAIN_CYCLES at the card's maximum SM clock. Returns
+    the single call's row for the kernels line."""
+    import torch
+
+    t0 = time.perf_counter()
+    hold_speed_law(kernels, "60 s single call", *single_args)
+    hold_speed_law(kernels, "0.7x sweep", *sweep_args)
+    rng = np.random.default_rng(5)
+    seeded = torch.as_tensor((rng.standard_normal((128, 999)) * 0.5).astype(np.float32),
+                             device=dev)
+    for rate, fb, nl in LAW_CASES:
+        hold_speed_law(kernels, f"[128, 999] {rate}x fb {fb} nl {nl}", seeded, rate, fb, nl)
+    durations = tuple(torch.as_tensor(rng.uniform(0.0, 4.0, 128).astype(np.float32), device=dev)
+                      for _ in range(2))
+    for rate in (0.7, 3.5):
+        hold_speed_law(kernels, f"[128, 999] {rate}x carried durations", seeded, rate, 0.1,
+                       1.0, durations)
+    rows = {}
+    for label, (tension, rate, fb, nl, init) in (
+        ("60 s single call", single_args),
+        ("[128, 999] 3.5x fb 0.1 nl 1.0", (seeded, 3.5, 0.1, 1.0, None)),
+    ):
+        B, T = tension.shape
+        call = lambda: kernels.speed_law(tension, rate, fb, nl, init)
+        ms = time_ms(call)
+        device_ms = device_profile(call)[0]
+        plain_ms = time_ms(lambda: kernels.speed_law_reference(tension, rate, fb, nl, init),
+                           reps=1, warmup=0)
+        nbytes = 4 * (2 * B * T + 4 * B)
+        bound_ms, bound_by = bound(nbytes, LAW_FLOP_PER_FRAME * B * T)
+        chain_ms = T * LAW_CHAIN_CYCLES / (sm_clock_mhz * 1e3)
+        rows[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        emit("speed_law", case=label, B=B, T=T, rate=rate, ms=ms, device_ms=device_ms,
+             device_ns_per_frame=None if device_ms is None else device_ms * 1e6 / T,
+             plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+             chain_latency_bound_ms=chain_ms, sm_clock_max_mhz=sm_clock_mhz)
+    emit("speed_law_bitwise", cases=2 + len(LAW_CASES) + 2, exact=True,
+         seconds=time.perf_counter() - t0)
+    return rows["60 s single call"]
 
 
 def run_cli_phase(pipeline, wave, cfg, x, dev):
@@ -1123,10 +1223,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
     batch.no_tf32()
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "TF32 still on")
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         sm_clock_max_mhz=sm_clock_mhz,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
@@ -1262,11 +1367,15 @@ def main() -> int:
     ):
         x_t = torch.as_tensor(x_np, device=dev)
         l_t = torch.as_tensor(l_np, device=dev)
-        kernels.reset_launches()
-        out = batch.batched_nonlinear_speedup(x_t, l_t, cfg, r, 1.0, 0.1)
-        torch.cuda.synchronize()
-        swept = dict(kernels.LAUNCHES)
-        check(only(swept, BATCH_KERNELS), label, "skipped a kernel or left its route", swept)
+        run = lambda: batch.batched_nonlinear_speedup(x_t, l_t, cfg, r, 1.0, 0.1)
+        swept, out = path_launches(kernels, run)
+        # At or below 1x the batch path runs the sequential law (kernel
+        # speed_law); its arguments are recorded for the speed-law phase.
+        slow = r <= 1.0
+        check(only(swept, SLOW_BATCH_KERNELS if slow else BATCH_KERNELS), label,
+              "skipped a kernel or left its route", swept)
+        if slow:
+            sweep_law_args = recorded_call(kernels, "speed_law", run)
         check(bool((out.valid_length > 0).all()), label, "empty output")
         check(bool(torch.isfinite(out.output).all()), label, "non-finite output")
         cmp = compare_paths(batch, kernels, x_t, l_t, None, cfg, r, None, out, label)
@@ -1285,6 +1394,11 @@ def main() -> int:
     check(not any(l_pl.values()), "the plain path launched a kernel", l_pl)
     cmp = compare_single(kernels, wsola_fast, x60, cfg16, res_nl, plain_nl,
                          "single nonlinear", dev)
+    # ---- 6a. the speed law's kernel against its plain loop ----
+    single_law_args = recorded_call(kernels, "speed_law", lambda: pipeline.nonlinear_speedup(
+        x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
+    results["speed_law"] = speed_law_phase(kernels, single_law_args, sweep_law_args, dev,
+                                           sm_clock_mhz)
     wall = single_split_ms(x60, cfg16, 3.5, dev)
     emit("single", case="nonlinear 16kHz 60s 3.5x", launches=l_nl,
          achieved_rate=res_nl.achieved_rate, wall_ms=wall,
@@ -1294,7 +1408,7 @@ def main() -> int:
     x44 = bench_families(30 * 44100, 44100)[0]
     l_li, res_li = path_launches(kernels, lambda: pipeline.linear_time_scale(
         x44, cfg44, 2.0, engine="grid", device=dev))
-    check(only(l_li, SINGLE_KERNELS), "single linear route", l_li)
+    check(only(l_li, SINGLE_ENGINE_KERNELS), "single linear route", l_li)
     plain_li = pipeline.linear_time_scale(x44, cfg44, 2.0, engine="grid", device=dev,
                                           reference=True)
     cmp = compare_single(kernels, wsola_fast, x44, cfg44, res_li, plain_li,
@@ -1321,7 +1435,7 @@ def main() -> int:
     l_u, r_u = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
         x60, speeds, cfg16, min_speed_bound=msb, device=dev))
     check(only(l_b, ("pitch_ssd", "gather_synth")), "bounded route", l_b)
-    check(only(l_u, SINGLE_KERNELS), "unbounded route", l_u)
+    check(only(l_u, SINGLE_ENGINE_KERNELS), "unbounded route", l_u)
     check(int(r_b.valid_length) == int(r_u.valid_length), "bounded valid_length")
     d_b = float((r_b.output - r_u.output).abs().max())
     check(d_b < 1e-6, "bounded against unbounded", d_b)
@@ -1351,13 +1465,15 @@ def main() -> int:
                                 bench_families(20 * 16000, 16000)[0], dev))
 
     # Launches: the batched path's run for its kernels, the single
-    # nonlinear run for kernel 4, the 60 s span route run for kernel 5, the
-    # gather phase's runs at shape A for kernels 6-8, and each probe's
-    # answer passes for kernels 9-15 (the batch step and the single call
-    # launch none of them). Times, errors and bounds: kernels 1-3 at the
-    # batch shape, kernel 4 at its path's shape, kernels 5-8 at shape A,
-    # the probes at probe_headline's rows.
+    # nonlinear run for kernel 4 and the speed law, the 60 s span route run
+    # for kernel 5, the gather phase's runs at shape A for kernels 6-8, and
+    # each probe's answer passes for kernels 9-15 (the batch step and the
+    # single call launch none of them). Times, errors and bounds: kernels
+    # 1-3 at the batch shape, kernel 4 and the speed law at the single
+    # path's shape, kernels 5-8 at shape A, the probes at probe_headline's
+    # rows.
     launches["gather_rows"] = l_nl["gather_rows"]
+    launches["speed_law"] = l_nl["speed_law"]
     launches["gather_rows_block"] = l_span["gather_rows_block"]
     results["gather_rows_block"] = gathers["gather_rows_block"]
     for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced",

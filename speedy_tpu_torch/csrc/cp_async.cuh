@@ -1,7 +1,9 @@
-// cp.async helpers shared by the gather kernels: 4-byte copies from global to
-// shared memory that bypass registers, grouped and waited on per thread
-// (PTX ISA, "cp.async"). A 4-byte copy takes any float address, so rows and
-// spans that start at an arbitrary sample need no alignment.
+// cp.async helpers shared by the kernels: copies from global to shared
+// memory that bypass registers, grouped and waited on per thread (PTX ISA,
+// "cp.async"). A 4-byte copy takes any float address, so rows and spans that
+// start at an arbitrary sample need no alignment; a 16-byte copy needs both
+// addresses 16-byte aligned. The _zfill forms copy the first src_bytes and
+// write zeros over the rest (src_bytes 0: no read, all zeros).
 //
 // A thread's cp.async writes are visible to other threads only after the
 // thread has waited on their group and the block has passed a barrier.
@@ -15,6 +17,25 @@ namespace speedy {
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(float* smem, const float* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

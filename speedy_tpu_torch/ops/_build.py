@@ -56,6 +56,7 @@ _SIGNATURES = {
     "speedy_gather_bisect": [_P] * 4 + [_I] * 8 + [_P],
     "speedy_synth_bisect": [_P] * 6 + [_I] * 9 + [_P],
     "speedy_bisect_span_rows": [_P] * 5 + [_I] * 7 + [_P],
+    "speedy_speed_law": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_I] * 2 + [_P],
 }
 
 

@@ -4,7 +4,10 @@ speedy_tpu/ops/speed.py).
 Scalars enter the arithmetic as 0-dim float32 tensors, so every step runs
 the same float32 operations as the JAX package (a Python float would be
 combined in float64 first); branches are taken on the Python values, so
-nothing waits for the device.
+nothing waits for the device. The sequential law's frame loop is
+kernels.speed_law on the card (csrc/speed_law.cu, the same operations in
+the same order) and kernels.speed_law_reference, a loop of speed_law_step,
+as its plain version.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .. import config as C
+from . import kernels
 
 
 class _Law(NamedTuple):
@@ -72,21 +76,20 @@ def speed_from_tension(
     global_rate: float,
     duration_feedback_strength: float = 0.0,
     nonlinear_factor: float = 1.0,
+    initial_durations=None,
+    *,
+    reference: bool = False,
 ):
-    """Map tension [B, T] to per-frame speeds [B, T], exactly as
-    speedy.c:768-788: a loop over frames, vectorised over the batch (the
-    JAX package's lax.scan). Returns (speeds, (current, desired)), the
-    final durations [B] each."""
-    law = _law(tension, global_rate, duration_feedback_strength, nonlinear_factor)
-    B, T = tension.shape
-    cur = tension.new_zeros(B)
-    des = tension.new_zeros(B)
-    out = []
-    for i in range(T):
-        cur, des, final = speed_law_step(law, cur, des, tension[:, i])
-        out.append(final)
-    speeds = torch.stack(out, dim=1) if out else tension.clone()
-    return speeds, (cur, des)
+    """Map tension [B, T] float32 to per-frame speeds [B, T], exactly as
+    speedy.c:768-788, from initial_durations (a pair of [B] float32
+    tensors, the durations carried in from an earlier segment; zeros by
+    default). Returns (speeds, (current, desired)), the final durations [B]
+    each. Frames are sequential by definition: on the card one kernel walks
+    them (kernels.speed_law, the JAX package's lax.scan); reference=True,
+    or CPU tensors, run the plain loop over frames."""
+    law = kernels.speed_law_reference if reference else kernels.speed_law
+    return law(tension.contiguous(), global_rate, duration_feedback_strength,
+               nonlinear_factor, initial_durations)
 
 
 def speed_from_tension_parallel(

@@ -206,7 +206,8 @@ def batched_nonlinear_speedup(
         )
     else:
         speeds, _ = speed_from_tension(
-            tension, global_speed, duration_feedback_strength, nonlinear_factor
+            tension, global_speed, duration_feedback_strength, nonlinear_factor,
+            reference=reference,
         )
 
     lengths = lengths.to(device=dev, dtype=torch.int64)

@@ -108,7 +108,8 @@ def nonlinear_speedup(
         speeds = torch.tensor([global_speed], dtype=torch.float32, device=xf.device)
     else:
         speeds = speed_from_tension(
-            tension[None], global_speed, duration_feedback_strength, nonlinear_factor
+            tension[None], global_speed, duration_feedback_strength, nonlinear_factor,
+            reference=reference,
         )[0][0]
     if min_speed_bound is None:
         # The speeds are known: plan the buffers from them (one read-back).
