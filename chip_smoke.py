@@ -4,13 +4,16 @@
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card (the row gathers
+each kernel against its plain PyTorch version on the card (kernels 1 and
+2 at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 x 10 s, with their
+device times, kernel 1 also at the other sample rates; the row gathers
 4-8 also against each other, at the grid engine's shape B=128 x 10 s at
 16 kHz, K=1,009 rows of 321), and drives the port's paths, each against
 the same call through the plain versions:
   - the batched path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz,
     3.5x, capacity factor 1.33, per-utterance gain), then the dryrun sweep
-    cases (0.7x with a ragged length; 22.05 kHz 3.0x);
+    cases (0.7x with a ragged length; 22.05 kHz 3.0x), then B=32 x 10 s at
+    44.1 kHz, 3.5x, capacity factor 1.33;
   - the single-utterance grid pipeline (pipeline.nonlinear_speedup on 60 s
     at 16 kHz, 3.5x; linear_time_scale at 44.1 kHz, 2.0x and the 1.0x
     pass-through; time_scale_grid with a speed ceiling against without
@@ -282,50 +285,87 @@ def covered_samples(starts, width, live, L) -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_analysis(kernels, x, gain, tables, cfg, label):
-    import torch
-
-    T = cfg.num_frames(x.shape[1], integer_step=True)
-    args = (x, gain, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
-            tables["tw_cos"], tables["tw_sin"], T, cfg.frame_step_int)
-    e_k, l_k = kernels.analysis_energy_lsd(*args)
-    e_p, l_p = kernels.analysis_energy_lsd_reference(*args)
-    torch.cuda.synchronize()
-    e_k, l_k, e_p, l_p = (t.cpu().numpy() for t in (e_k, l_k, e_p, l_p))
+def hold_energy_lsd(e_k, l_k, e_p, l_p, x, cfg, label, edge_frames=False):
+    """Kernel 1's energy and lsd [B, T] (numpy) against a reference's, for
+    x [B, L]: energy within 1e-6 + 1e-5 relative; lsd per utterance at most
+    2 frames beyond 2e-4 of its scale and relative error below 1e-2, or,
+    with edge_frames, each frame at or above 1e-2 a 40 dB mask-edge frame
+    (mask_edge_margins below 1e-4: a bin flips in or out of the masked
+    sum). Returns the energy's largest error, its largest relative error,
+    lsd's errors, the most frames an utterance has beyond 2e-4 of its
+    scale, and the mask-edge frames."""
     check(np.all(np.isfinite(e_k)) and np.all(np.isfinite(l_k)), label, "non-finite")
     e_err = np.abs(e_k - e_p)
-    check(np.all(e_err <= 1e-6 + 1e-5 * np.abs(e_p)), label, "energy",
-          float((e_err / (np.abs(e_p) + 1e-6)).max()))
+    e_rel = float((e_err / (np.abs(e_p) + 1e-6)).max())
+    check(np.all(e_err <= 1e-6 + 1e-5 * np.abs(e_p)), label, "energy", e_rel)
     # lsd[:, 0] is don't-care. Per utterance at most 2 frames beyond
     # 2e-4*max(scale, 1), and relative error below 1e-2 everywhere
     # (tests/test_pallas_kernels.py:506-511).
     dl = np.abs(l_k[:, 1:] - l_p[:, 1:])
-    worst_frames, worst_rel = 0, 0.0
+    worst_frames, worst_rel, edges = 0, 0.0, 0
     for b in range(x.shape[0]):
         scale = float(np.abs(l_p[b]).max())
         n_out = int((dl[b] > 2e-4 * max(scale, 1.0)).sum())
-        rel = float((dl[b] / (np.abs(l_p[b, 1:]) + 1.0)).max())
-        worst_frames, worst_rel = max(worst_frames, n_out), max(worst_rel, rel)
+        rel = dl[b] / (np.abs(l_p[b, 1:]) + 1.0)
+        if edge_frames:
+            for t in np.flatnonzero(rel >= 1e-2) + 1:
+                m = mask_edge_margins(x[b].cpu().numpy(), cfg, [int(t)])[0]
+                check(m < 1e-4, label, "lsd outlier not at a mask edge", b, int(t), m)
+                edges += 1
+            rel = np.where(rel >= 1e-2, 0.0, rel)
+        worst_frames, worst_rel = max(worst_frames, n_out), max(worst_rel, float(rel.max()))
     check(worst_frames <= 2 and worst_rel < 1e-2, label, "lsd", worst_frames, worst_rel)
-    ms = time_ms(lambda: kernels.analysis_energy_lsd(*args))
+    return e_err, e_rel, dl, worst_frames, edges
+
+
+def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
+    """Kernel 1 on the arguments batch.batched_analysis passes it for x
+    [B, L] (so any checkout's tables and signature), against its plain
+    version with hold_energy_lsd's tolerances. Its CUDA-event and device
+    times, the plain version's, and the transform alone by
+    torch.fft.rfft."""
+    import torch
+
+    T = cfg.num_frames(x.shape[1], integer_step=True)
+    args = recorded_call(kernels, "analysis_energy_lsd",
+                         lambda: batch.batched_analysis(x, cfg, T, gain))
+    e_k, l_k = kernels.analysis_energy_lsd(*args)
+    e_p, l_p = kernels.analysis_energy_lsd_reference(*args)
+    torch.cuda.synchronize()
+    e_k, l_k, e_p, l_p = (t.cpu().numpy() for t in (e_k, l_k, e_p, l_p))
+    e_err, _, dl, worst_frames, edges = hold_energy_lsd(
+        e_k, l_k, e_p, l_p, x, cfg, label, edge_frames)
+    call = lambda: kernels.analysis_energy_lsd(*args)
+    ms = time_ms(call)
+    device_ms = device_profile(call)[0]
     plain_ms = time_ms(lambda: kernels.analysis_energy_lsd_reference(*args))
+    # The transform alone, not the kernel's function: torch.fft.rfft of the
+    # frames, materialized beforehand, at n = 2W, and its magnitude.
+    B, L = x.shape
+    W, step = cfg.window_size, cfg.frame_step_int
+    frames = x.unfold(1, W, step)[:, :T].contiguous()
+    library_transform_ms = time_ms(lambda: torch.fft.rfft(frames, n=2 * W).abs())
+    del frames
     err = float(e_err.max())
     # The least work a frame needs: pre-emphasis and window (3 FLOP a
     # sample), bins 1..W-1 of the frame zero-padded to 2W points, by a real
     # FFT or, if fewer, by the direct sums' 2*W*(W-1) FMAs, and per bin its
     # magnitude, the energy, the threshold's max, the normalisation and the
     # masked log ratio (13 FLOP). x, gain, the window and twiddles read
-    # once, energy and lsd written once.
-    B, L = x.shape
-    W = cfg.window_size
+    # once, energy and lsd written once. Beside it, the floor of any direct
+    # sum: its 2*W*(W-1) FMAs a frame at the float32 peak.
     spectrum = min(rfft_flop(2 * W), 4.0 * W * (W - 1))
     nbytes = 4 * (B * L + B + W + 4 * W + 2 * B * T)
     bound_ms, bound_by = bound(nbytes, (3 * W + spectrum + 13 * (W - 1)) * B * T)
-    emit("kernel", kernel="analysis_energy_lsd", shape=label, energy_max_abs_err=err,
-         lsd_max_abs_err=float(dl.max()), lsd_frames_out_max=worst_frames,
-         ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    direct_sum_floor_ms = 4.0 * W * (W - 1) * B * T / F32_FLOP_PER_S * 1e3
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                  library_transform_ms=library_transform_ms)
+    emit("kernel", kernel="analysis_energy_lsd", shape=label, frames=B * T,
+         energy_max_abs_err=err, lsd_max_abs_err=float(dl.max()),
+         lsd_frames_out_max=worst_frames, lsd_mask_edge_frames=edges, bytes=nbytes,
+         direct_sum_floor_ms=direct_sum_floor_ms, **result)
+    return result
 
 
 def check_pitch(kernels, x, gain, tables, cfg, label):
@@ -358,7 +398,9 @@ def check_pitch(kernels, x, gain, tables, cfg, label):
     xp[:, :L] = x.cpu().numpy()
     segs = xp.reshape(B, n_grid, G)[:, :, :seg_w]
     assert_period_flips_are_ties(segs, per_p, per_k, taps, minp, maxp)
-    ms = time_ms(lambda: kernels.pitch_ssd(*args))
+    call = lambda: kernels.pitch_ssd(*args)
+    ms = time_ms(call)
+    device_ms = device_profile(call)[0]
     plain_ms = time_ms(lambda: kernels.pitch_ssd_reference(*args))
     err = float(d.max())
     # The least work a cell needs: the gain (1 FLOP a sample of its seg_w),
@@ -367,19 +409,23 @@ def check_pitch(kernels, x, gain, tables, cfg, label):
     # FLOP a bin between; lag + taps <= seg_w, so nothing wraps) or, if
     # fewer, by the direct sums' taps FMAs a lag; the window energies by a
     # running sum (2 FLOP a sample) and per lag the SSD and the argmin (4
-    # FLOP). x and gain read once, the periods written once.
+    # FLOP). x and gain read once, the periods written once. Beside it, the
+    # floor of the direct sums: taps FMAs a lag at the float32 peak.
     nl = maxp - minp + 1
     corr = min(3 * rfft_flop(seg_w) + 6 * (seg_w // 2 + 1), 2.0 * taps * nl)
     nbytes = 4 * (B * L + B + B * n_grid)
     bound_ms, bound_by = bound(nbytes, (3 * seg_w + corr + 4 * nl) * B * n_grid)
+    direct_sum_floor_ms = 2.0 * taps * nl * B * n_grid / F32_FLOP_PER_S * 1e3
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                  integer_flips=int(flips.sum()),
+                  kernel_share_off_f64_0p1=float(np.mean(dk > 0.1)))
     emit("kernel", kernel="pitch_ssd", shape=label, G=G, cells=B * n_grid,
-         max_abs_err=err, share_off_0p1_same_lag=share,
-         integer_flips=int(flips.sum()), kernel_share_off_f64_0p1=float(np.mean(dk > 0.1)),
+         direct_sum_floor_ms=direct_sum_floor_ms, share_off_0p1_same_lag=share,
          plain_share_off_f64_0p1=float(np.mean(dp > 0.1)),
          kernel_max_off_f64=float(dk.max()), plain_max_off_f64=float(dp.max()),
-         ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+         bytes=nbytes, **result)
+    return result
 
 
 def exact_pitch(kernels, x, gain, taps, minp, maxp, G, n_grid):
@@ -449,12 +495,86 @@ def check_synth(kernels, x, gain, hop, K, rate, label):
                 bound_by=bound_by, library_ms=None)
 
 
+# Rate label -> (sample rate, batch): 10 s utterances of the four families,
+# at the first benchmark's batch sizes but 22.05 kHz (PERF.md, Cells).
+FRONT_END_SHAPES = {"16kHz": (16000, 128), "22.05kHz": (22050, 8), "44.1kHz": (44100, 32)}
+
+
+def front_end_inputs(dev, rng) -> dict:
+    """Rate label -> (cfg, xs [B, 10 s] of the four families, gains drawn
+    uniform in [0.5, 1) from rng in FRONT_END_SHAPES' order)."""
+    import torch
+    from speedy_tpu_torch.config import SpeedyConfig
+
+    out = {}
+    for label, (sr, B) in FRONT_END_SHAPES.items():
+        xs = torch.as_tensor(batch_of(bench_families(10 * sr, sr), B), device=dev)
+        gain = torch.as_tensor(rng.uniform(0.5, 1.0, B).astype(np.float32), device=dev)
+        out[label] = (SpeedyConfig(sr), xs, gain)
+    return out
+
+
+def front_end_phase(kernels, batch, inputs, x60) -> dict:
+    """Kernels 1 and 2 against their plain versions at each shape of
+    front_end_inputs, and kernel 2 also on the 60 s single call's input
+    x60 (16 kHz, gain 1). Returns {kernel: {shape label: result}}."""
+    import torch
+
+    rows = {"analysis_energy_lsd": {}, "pitch_ssd": {}}
+    for label, (cfg, xs, gain) in inputs.items():
+        rows["analysis_energy_lsd"][label] = check_analysis(
+            kernels, batch, xs, gain, cfg, f"{label} B={xs.shape[0]} L={xs.shape[1]}")
+        rows["pitch_ssd"][label] = check_pitch(
+            kernels, xs, gain, batch.device_tables(cfg, xs.device), cfg,
+            f"{label} B={xs.shape[0]} L={xs.shape[1]}")
+    cfg, xs, _ = inputs["16kHz"]
+    x = torch.as_tensor(x60, device=xs.device)[None]
+    rows["pitch_ssd"]["16kHz 60s"] = check_pitch(
+        kernels, x, torch.ones(1, device=xs.device), batch.device_tables(cfg, xs.device),
+        cfg, f"16kHz B=1 L={x.shape[1]} (the single call)")
+    return rows
+
+
+def check_analysis_model(kernels, batch, analysis_fft, inputs) -> dict:
+    """Kernel 1 against analysis_fft.spectrum_model, the float32 model of
+    its FFT's stages in their order, at each shape of front_end_inputs
+    whose plan is the FFT: the model's magnitudes through the plain
+    version's framing and reductions (kernels.windowed_frames,
+    kernels.energy_lsd), held with hold_energy_lsd's tolerances. Returns
+    {shape label: the energy's and lsd's largest errors}."""
+    import torch
+
+    out = {}
+    for label, (cfg, x, gain) in inputs.items():
+        W = cfg.window_size
+        if analysis_fft.fft_plan(W).route != "stockham":
+            continue
+        T = cfg.num_frames(x.shape[1], integer_step=True)
+        args = recorded_call(kernels, "analysis_energy_lsd",
+                             lambda: batch.batched_analysis(x, cfg, T, gain))
+        x_, gain_, ham, _, _, _, T_, step = args
+        e_k, l_k = kernels.analysis_energy_lsd(*args)
+        frames = kernels.windowed_frames(x_, gain_, ham, T_, step)
+        half = analysis_fft.spectrum_model(frames.reshape(-1, W)).reshape(frames.shape)
+        e_m, l_m = kernels.energy_lsd(half)
+        torch.cuda.synchronize()
+        del frames, half
+        e_k, l_k, e_m, l_m = (t.cpu().numpy() for t in (e_k, l_k, e_m, l_m))
+        tag = f"{label} B={x.shape[0]} against spectrum_model"
+        e_err, e_rel, dl, worst_frames, _ = hold_energy_lsd(e_k, l_k, e_m, l_m, x, cfg, tag)
+        out[label] = dict(energy_max_abs_err=float(e_err.max()), energy_max_rel_err=e_rel,
+                          lsd_max_abs_err=float(dl.max()), lsd_frames_out_max=worst_frames)
+        emit("kernel_model", kernel="analysis_energy_lsd", shape=label, **out[label])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path against the plain path
 # ---------------------------------------------------------------------------
 
 
-def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res, label):
+def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res, label,
+                  own_share_gate=True):
     """The kernel path's result `res` against the same call through the
     plain versions on the card:
       - equal valid lengths, and tension within 2e-5 except at 40 dB
@@ -465,8 +585,22 @@ def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res,
         and max|d| < 2e-3 on every sample outside the output slots of
         chunks whose pitch cell or phase snap rounds differently in the two
         paths (see below), and such chunks are under 0.1% of the live ones;
+      - the plain path with its own grid against the plain path fed the
+        kernel's (the same tension, so the same speeds): every sample
+        differs by no more than the two grids' moves of the chunks that
+        feed it explain, and so not at all outside the output slots of
+        chunks whose source position the grids move (as
+        tests/test_pallas_kernels.py:718-746 traces every sample off by
+        more than 1e-3 to a cell whose period differs). A row is the
+        gained source's linear interpolant read from a + j, so a chunk
+        moved by |da| moves it by at most |da| times the source's largest
+        step between neighbours, and a slot's two COLA weights sum to at
+        most cw; 1e-5 is left for float32 rounding;
       - with its own grid, under 2% of the valid samples are off by more
-        than 1e-3 (tests/test_pallas_kernels.py:750)."""
+        than 1e-3 (tests/test_pallas_kernels.py:750); reported, not gated,
+        where own_share_gate is False (the 44.1 kHz batch phase: a chunk's
+        position multiplies a period difference by its snap count, and
+        the previous bullet holds those moves to the grids)."""
     import torch
     from speedy_tpu_torch.ops import wsola_fast
 
@@ -537,10 +671,28 @@ def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res,
     check(tipped_share < 1e-3, label, "tipped chunks", n_tipped, tipped_share)
     steady = live & ~tipped
     shift = float((pk.a - pp.a).abs()[steady].max()) if bool(steady.any()) else 0.0
+    # The own grid's part: the plain path's own grid against the kernel's.
+    check(torch.equal(plain.speeds, fed.speeds), label, "plain speeds differ with the grid")
+    grid_p = kernels.pitch_ssd_reference(xs, g, maxp, minp, maxp, G, n_grid, corr)
+    po = wsola_fast.grid_positions(lens32, plain.speeds, grid_p, cfg.frame_step_int, hop, G,
+                                   capacity, K, max_speed_plan=plan)
+    da = (pp.a - po.a).abs()
+    reach = da.clone()
+    reach[:, 1:] = torch.maximum(da[:, 1:], da[:, :-1])  # slot k: chunks k-1 and k
+    reach = reach.repeat_interleave(hop, dim=1)[:, :capacity]
+    src = torch.nn.functional.pad(xs * g[:, None], (1, 1))
+    lip = (src[:, 1:] - src[:, :-1]).abs().amax(dim=1)
+    cola = tables["cola"]
+    cw = max(float((cola[:hop] + cola[hop:]).max()), 1.0)
+    d_grid = (plain.output - fed.output).abs()
+    excess = d_grid - reach * lip[:, None] * cw
+    n_beyond = int((excess > 1e-5).sum())
+    check(n_beyond == 0, label, "own-grid samples beyond their chunks' moves", n_beyond,
+          float(excess.max()))
     d_own = (plain.output - res.output).abs()
     valid_total = max(int(res.valid_length.sum()), 1)
     share = float((d_own > 1e-3).sum()) / valid_total
-    check(share < 0.02, label, "own-grid share of |d| > 1e-3", share)
+    check(share < 0.02 or not own_share_gate, label, "own-grid share of |d| > 1e-3", share)
     return dict(tension_max_abs_err=float(dt.max()) if dt.size else 0.0,
                 tension_mask_edge_frames=edges,
                 engine_fed_max_abs_err=eng_max, engine_fed_mean_abs_err=eng_mean,
@@ -551,6 +703,11 @@ def compare_paths(batch, kernels, xs, lengths, gain, cfg, rate, cap_factor, res,
                 path_fed_tipped_cell=int((tipped & (pk.cell != pp.cell)).sum()),
                 path_fed_position_shift_max=shift,
                 path_fed_share_over_2e3=float((d_fed > 2e-3).sum()) / valid_total,
+                own_grid_moved_chunks=int((da > 0).sum()),
+                own_grid_move_max=float(da.max()),
+                own_grid_max_abs_err=float(d_grid.max()),
+                own_grid_share_over_1e3=float((d_grid > 1e-3).sum()) / valid_total,
+                own_grid_excess_max=float(excess.max()),
                 own_share_over_1e3=share, own_max_abs_err=float(d_own.max()),
                 own_mean_abs_err=float(d_own.mean()))
 
@@ -1214,7 +1371,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline
     from speedy_tpu_torch.io import wave
-    from speedy_tpu_torch.ops import _build, kernels, wsola_fast
+    from speedy_tpu_torch.ops import _build, analysis_fft, kernels, wsola_fast
     from speedy_tpu_torch.parallel import batch
 
     # ---- 1. device ----
@@ -1246,33 +1403,41 @@ def main() -> int:
     emit("build", seconds=build_s, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
 
     # ---- 3. kernels against their plain versions ----
-    cfg16, cfg22 = SpeedyConfig(16000), SpeedyConfig(22050)
+    cfg16, cfg22, cfg44 = SpeedyConfig(16000), SpeedyConfig(22050), SpeedyConfig(44100)
     rng = np.random.default_rng(0)
-    B, L = 128, 160000
-    xs16 = torch.as_tensor(batch_of(bench_families(L, 16000), B), device=dev)
-    gain16 = torch.as_tensor(rng.uniform(0.5, 1.0, B).astype(np.float32), device=dev)
-    L22 = 220500
-    xs22 = torch.as_tensor(batch_of(bench_families(L22, 22050), 8), device=dev)
-    gain22 = torch.as_tensor(rng.uniform(0.5, 1.0, 8).astype(np.float32), device=dev)
-    tab16 = {k: v.to(dev) for k, v in batch.SpeedupEngine(cfg16, 3.5).tables().items()}
-    tab22 = {k: v.to(dev) for k, v in batch.SpeedupEngine(cfg22, 3.0).tables().items()}
+    inputs = front_end_inputs(dev, rng)
+    (_, xs16, gain16), (_, xs22, gain22) = inputs["16kHz"], inputs["22.05kHz"]
+    B, L = xs16.shape
+    x60 = bench_families(60 * 16000, 16000)[0]
+    front = front_end_phase(kernels, batch, inputs, x60)
+    check_analysis_model(kernels, batch, analysis_fft, inputs)
     results = {}
-    results["analysis_energy_lsd"] = check_analysis(
-        kernels, xs16, gain16, tab16, cfg16, "16kHz B=128 L=160000")
-    check_analysis(kernels, xs22, gain22, tab22, cfg22, "22.05kHz B=8 L=220500")
-    results["pitch_ssd"] = check_pitch(
-        kernels, xs16, gain16, tab16, cfg16, "16kHz B=128 L=160000 G=512")
-    check_pitch(kernels, xs22, gain22, tab22, cfg22, "22.05kHz B=8 L=220500 G=768")
+    for name, rows in front.items():
+        results[name] = dict(rows["16kHz"], shapes=rows)
+    # Kernel 1 at the other sample rates it has an FFT body for, and at 7
+    # and 12 kHz, whose W (105, 180) run the direct sum (B=2, 2 s; an lsd
+    # frame may be off by a mask-edge flip), then the body it ran at each
+    # rate: the plan its wrapper picks from W.
+    for sr in (8000, 11025, 24000, 32000, 48000, 7000, 12000):
+        cfg = SpeedyConfig(sr)
+        x = torch.as_tensor(batch_of(bench_families(2 * sr, sr), 2), device=dev)
+        check_analysis(kernels, batch, x, gain16[:2].contiguous(), cfg,
+                       f"{sr / 1000:g}kHz B=2 L={2 * sr}", edge_frames=True)
+    results["analysis_energy_lsd"]["bodies"] = {
+        rate: analysis_fft.fft_plan(cfg.window_size).route
+        for rate, (cfg, _, _) in inputs.items()}
+    results["analysis_energy_lsd"]["library_transform"] = (
+        "torch.fft.rfft of the frames at n = 2W, and abs: the transform alone, not the "
+        "kernel's function")
+    tab16 = batch.device_tables(cfg16, dev)
     results["gather_synth"] = check_synth(
         kernels, xs16, gain16, 160, 383, 3.5, "hop=160 B=128 K=383")
     check_synth(kernels, xs22, gain22, 220, 400, 3.0, "hop=220 B=8 K=400")
-    fam44 = bench_families(441000, 44100)
-    xs44 = torch.as_tensor(batch_of(fam44, 4), device=dev)
-    check_synth(kernels, xs44, gain22[:4].contiguous(), 441, 400, 3.0, "hop=441 B=4 K=400")
+    _, xs44, gain44 = inputs["44.1kHz"]
+    check_synth(kernels, xs44[:4].contiguous(), gain22[:4].contiguous(), 441, 400, 3.0,
+                "hop=441 B=4 K=400")
     # Kernel 4 at the single-utterance path's own shape (its arguments
     # recorded from one nonlinear_speedup call on 60 s) and at 44.1 kHz.
-    cfg44 = SpeedyConfig(44100)
-    x60 = bench_families(60 * 16000, 16000)[0]
     path_args = recorded_call(kernels, "gather_rows", lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
     results["gather_rows"], _ = check_gather(
@@ -1290,10 +1455,8 @@ def main() -> int:
         check_gather(kernels, name, label, *case16, same_as=rows4,
                      rows_per_block=wsola_fast.SPAN_ROWS, w_span=w_span16)
     del case16, rows4
-    xs44b = torch.as_tensor(batch_of(fam44, 16), device=dev)
     check_gather(kernels, "gather_rows", "44.1kHz B=16 L=441000 3.5x",
-                 *gather_case(xs44b, cfg44, 3.5, 6))
-    del xs44b
+                 *gather_case(xs44[:16].contiguous(), cfg44, 3.5, 6))
 
     # ---- 3b. the gather family (kernels 4-8) at the engine's shape ----
     gathers = gather_phase(kernels, wsola_fast, xs16, cfg16, ceiling16)
@@ -1381,6 +1544,36 @@ def main() -> int:
         cmp = compare_paths(batch, kernels, x_t, l_t, None, cfg, r, None, out, label)
         emit("sweep", case=label, launches=swept,
              checksum=float(out.output.double().sum()), **cmp)
+
+    # ---- 5b. the batch path at 44.1 kHz (B=32 x 10 s, 3.5x, cap 1.33) ----
+    B44, L44 = xs44.shape
+    engine44 = SpeedupEngine(cfg44, rate, 1.0, 0.1, capacity_factor=cap_factor).to(dev)
+    lengths44 = torch.full((B44,), L44, dtype=torch.int32, device=dev)
+    l44, res44 = path_launches(kernels, lambda: engine44(xs44, lengths44, gain44))
+    check(only(l44, BATCH_KERNELS), "44.1 kHz batch skipped a kernel or left its route", l44)
+    cap44 = res44.output.shape[1]
+    check(cap44 == batch.grid_output_capacity(cfg44, L44, rate, cap_factor), "44.1 kHz capacity")
+    check(int(res44.valid_length.max()) < cap44, "44.1 kHz truncated output")
+    check(bool(torch.isfinite(res44.output).all()) and bool(torch.isfinite(res44.tension).all()),
+          "44.1 kHz non-finite output or tension")
+    # With each path's own pitch grid the share of samples off by more than
+    # 1e-3 is reported, not gated: at 44.1 kHz the phase snap multiplies
+    # the two grids' period differences into chunk moves, with the old
+    # kernel 2 as with the new (PERF.md, Findings; ROADMAP, C2).
+    # compare_paths holds every sample to the moves of its chunks, and
+    # check_pitch the two grids on these inputs: flips only at float64
+    # ties, sub-sample agreement elsewhere.
+    cmp = compare_paths(batch, kernels, xs44, lengths44, gain44, cfg44, rate, cap_factor,
+                        res44, "44.1kHz batch", own_share_gate=False)
+    step44 = host_ms(lambda: engine44(xs44, lengths44, gain44))
+    busy44, n44, top44 = device_profile(lambda: engine44(xs44, lengths44, gain44))
+    emit("batch", case=f"44.1kHz B={B44} L={L44} {rate}x cap {cap_factor}", launches=l44,
+         capacity=cap44, max_valid=int(res44.valid_length.max()),
+         checksum=float(res44.output.double().sum()), step_ms_host_median=step44,
+         audio_s_per_s=B44 * L44 / 44100 / (step44 / 1e3), device_busy_ms=busy44,
+         device_idle_share=None if busy44 is None else 1.0 - busy44 / step44,
+         device_kernels_per_step=n44, top_device_ms=top44, **cmp)
+    del engine44, res44
 
     # ---- 6. the single-utterance grid pipeline ----
     l_nl, res_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
@@ -1479,10 +1672,19 @@ def main() -> int:
     for name in ("gather_rows_block_v2", "gather_rows_pipelined", "gather_rows_coalesced",
                  *PROBE_KERNELS):
         launches[name] = results[name]["launches"]
+    # Kernels 1 and 2 add their device ms at each shape, and kernel 1 the
+    # body it ran at each rate (their direct-sum floors are on the phase's
+    # kernel lines).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = {
+        "analysis_energy_lsd": ("device_ms", "library_transform_ms", "library_transform",
+                                "bodies", "shapes"),
+        "pitch_ssd": ("device_ms", "shapes"),
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], **{k: results[name][k] for k in keys}}
+         "launches": launches[name],
+         **{k: results[name][k] for k in keys + extra.get(name, ())}}
         for name, (src, tpu) in KERNEL_SOURCES.items()
     ]}))
     print(smi)
@@ -1502,10 +1704,16 @@ def device_profile(fn):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # A profiler run now and then records no device work for a short
+    # call; up to three runs are tried.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     if not events:
         return None, 0, []
     ms = [e.time_range.elapsed_us() / 1e3 for e in events]
@@ -1554,7 +1762,7 @@ def layer_times(batch, kernels, engine, xs, lengths, gain, cfg, rate):
         "analysis": time_ms(lambda: batch.batched_analysis(xs, cfg, T, gain, tables)),
         "analysis_kernel": time_ms(lambda: kernels.analysis_energy_lsd(
             xs, gain, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
-            tables["tw_cos"], tables["tw_sin"], T, cfg.frame_step_int)),
+            tables["analysis_fft"], T, cfg.frame_step_int)),
         "speed_law": time_ms(
             lambda: speed.speed_from_tension_parallel(tension, rate, 0.1, 1.0)),
         "grid_engine": time_ms(engine_step),

@@ -23,7 +23,7 @@ from torch import nn
 
 from .. import config as C
 from ..config import SpeedyConfig
-from ..ops import analysis, dft, kernels, wsola, wsola_fast
+from ..ops import analysis, analysis_fft, dft, kernels, wsola, wsola_fast
 from ..ops.dft import no_tf32
 from ..ops.speed import speed_from_tension, speed_from_tension_parallel
 
@@ -31,8 +31,8 @@ TABLE_NAMES = (
     "hamming", "dft_cos", "dft_sin", "cola",
     "pitch_ea", "pitch_es", "pitch_inv", "pitch_band",
 )
-# Kernel 1's twiddle tables, derived from the DFT basis (analysis_twiddles).
-DERIVED_TABLES = ("tw_cos", "tw_sin")
+# Kernel 1's FFT tables (analysis_fft.packed_table), derived from W.
+DERIVED_TABLES = ("analysis_fft",)
 
 
 class BatchResult(NamedTuple):
@@ -57,12 +57,12 @@ def build_tables(cfg: SpeedyConfig) -> Dict[str, np.ndarray]:
 
 
 def device_tables(cfg: SpeedyConfig, device) -> Dict[str, torch.Tensor]:
-    """build_tables on `device`, with the twiddle tables derived from them."""
+    """build_tables on `device`, with kernel 1's FFT tables beside them."""
     tables = {
         k: torch.as_tensor(v, device=device) for k, v in build_tables(cfg).items()
     }
-    tables["tw_cos"], tables["tw_sin"] = kernels.analysis_twiddles(
-        tables["dft_cos"], tables["dft_sin"]
+    tables["analysis_fft"] = torch.tensor(
+        analysis_fft.packed_table(cfg.window_size), device=device
     )
     return tables
 
@@ -98,7 +98,7 @@ def batched_analysis(
     front = kernels.analysis_energy_lsd_reference if reference else kernels.analysis_energy_lsd
     energy, lsd_full = front(
         xs, g, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
-        tables["tw_cos"], tables["tw_sin"], T, cfg.frame_step_int,
+        tables["analysis_fft"], T, cfg.frame_step_int,
     )
     return analysis.tension_chain(energy, lsd_full[:, :T_out], cfg, T_out).tension
 
@@ -279,8 +279,8 @@ class SpeedupEngine(nn.Module):
     def load_tables(self, arrays: Dict[str, np.ndarray]) -> None:
         """Carry tables across from numpy arrays (e.g. the JAX package's
         own: np.asarray(dft.dft_matrices(W)[0]) for "dft_cos"). Every name
-        must be one of TABLE_NAMES and match the buffer's shape; the
-        twiddle tables are derived anew from the DFT basis."""
+        must be one of TABLE_NAMES and match the buffer's shape; kernel 1's
+        FFT tables are derived anew from the window size."""
         for name, arr in arrays.items():
             if name not in TABLE_NAMES:
                 raise KeyError(f"unknown table {name!r}; expected one of {TABLE_NAMES}")
@@ -291,11 +291,9 @@ class SpeedupEngine(nn.Module):
                     f"table {name!r}: shape {tuple(src.shape)} != {tuple(buf.shape)}"
                 )
             buf.copy_(src)
-        for buf, tab in zip(
-            (self.tw_cos, self.tw_sin),
-            kernels.analysis_twiddles(self.dft_cos, self.dft_sin),
-        ):
-            buf.copy_(tab)
+        self.analysis_fft.copy_(
+            torch.tensor(analysis_fft.packed_table(self.hamming.shape[0]))
+        )
 
     def forward(
         self,

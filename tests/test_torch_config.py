@@ -17,6 +17,7 @@ from speedy_tpu.ops import wsola_fast as jwf
 from speedy_tpu.parallel import batch as jbatch
 
 from speedy_tpu_torch import config as tconfig
+from speedy_tpu_torch.ops import analysis_fft as tanalysis_fft
 from speedy_tpu_torch.ops import dft as tdft
 from speedy_tpu_torch.ops import wsola as twsola
 from speedy_tpu_torch.ops import wsola_fast as twf
@@ -132,11 +133,12 @@ def test_load_tables_round_trip():
     assert set(dict(eng.named_buffers())) == set(
         tbatch.TABLE_NAMES + tbatch.DERIVED_TABLES
     )
-    # The twiddle tables follow the loaded basis: cos and -sin of 2*pi*m/2W.
+    # Kernel 1's FFT tables are derived anew from the window size
+    # (tests/test_torch_analysis_fft.py checks them against float64).
+    eng.analysis_fft.fill_(-7.0)
+    eng.load_tables(ref)
     W = ref["hamming"].shape[0]
-    ang = 2.0 * np.pi * np.arange(2 * W) / (2 * W)
-    np.testing.assert_allclose(eng.tw_cos.numpy(), np.cos(ang), atol=1e-7)
-    np.testing.assert_allclose(eng.tw_sin.numpy(), -np.sin(ang), atol=1e-7)
+    np.testing.assert_array_equal(eng.analysis_fft.numpy(), tanalysis_fft.packed_table(W))
     with pytest.raises(ValueError):
         eng.load_tables({"cola": np.zeros(3, np.float32)})
     with pytest.raises(KeyError):

@@ -55,7 +55,7 @@ def test_analysis_reference_matches_pallas_kernel(sr, L):
     tab = cpu_tables(cfg)
     e_t, l_t = kernels.analysis_energy_lsd(
         torch.as_tensor(xs), torch.as_tensor(GAIN), tab["hamming"],
-        tab["dft_cos"], tab["dft_sin"], tab["tw_cos"], tab["tw_sin"], T, step,
+        tab["dft_cos"], tab["dft_sin"], tab["analysis_fft"], T, step,
     )
     np.testing.assert_allclose(e_t.numpy(), e_k, rtol=1e-5, atol=1e-6)
     # lsd[:, 0] is don't-care; at most 2 frames may differ by a 40 dB
