@@ -27,9 +27,13 @@ the same call through the plain versions:
     bounded 60 s run's chunk positions and on the batch step's;
   - the experiment probes (speedy_tpu_torch/experiments: kernels 9-15),
     each probe's question once through its kernel, then the kernel
-    against its plain version and the library call, then its times; the
-    bisection probes (kernels 10, 11, 14) time each stage of kernels 5 and
-    3's bodies and hold the last stage to kernels 5 and 3.
+    against its plain version and the library call, then its times
+    (kernels 13 and 15 in pairs with their library calls, with each one's
+    host cost of a launch; kernel 15's dot forms also on a seeded normal E,
+    within the float32 bound of their products); the bisection probes
+    (kernels 10, 11, 14) time each stage of kernels 5 and 3's bodies and
+    hold the last stage to kernels 5 and 3; where there is a second card,
+    a launch on a tensor there while the first is current.
 Prints one line per phase, a JSON line of the kernels' launches, errors,
 times and bounds, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
@@ -1034,6 +1038,25 @@ def probe_phase(kernels, dev) -> dict:
     return out
 
 
+def check_other_card(kernels) -> dict:
+    """A wrapper given a tensor on a card that is not the current one
+    launches on that card: kernel 13 on cuda:1 while cuda:0 is current,
+    bitwise to torch.roll there, with one launch. Not run with one card."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        return dict(run=False, reason="one card")
+    check(torch.cuda.current_device() == 0, "cuda:0 is not the current device")
+    x = torch.randn(64, 512, device="cuda:1")
+    counts, out = path_launches(kernels, lambda: kernels.lane_roll(x, 266))
+    torch.cuda.synchronize(1)
+    check(out.device == x.device and torch.equal(out, torch.roll(x, 266, 1)),
+          "lane_roll on cuda:1")
+    check(counts["lane_roll"] == 1 and torch.cuda.current_device() == 0,
+          "lane_roll on cuda:1 launches", counts)
+    return dict(run=True, device=str(x.device))
+
+
 def check_bisect_edges(kernels, dev) -> None:
     """Kernels 10, 11 and 14 against their plain versions off the
     experiments' shapes: blocks of 100 rows, K = 300, a dead utterance
@@ -1467,6 +1490,7 @@ def main() -> int:
     # ---- 3c. the experiment probes (kernels 9-15) ----
     results.update(probe_phase(kernels, dev))
     check_bisect_edges(kernels, dev)
+    emit("other_card", **check_other_card(kernels))
 
     # ---- 4. the main path ----
     rate, cap_factor = 3.5, 1.33

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Kernels 1 and 2 (the analysis front-end and the pitch search) of two
-checkouts of the port, timed in turns on one card.
+"""Kernels of two checkouts of the port, timed in turns on one card.
 
     python3 kernel_ab.py OTHER        (from the repository root; one card)
 
 OTHER is another checkout of the repository, e.g. a `git archive` of a
 parent commit unpacked into a directory that .gitignore lists. Four
 processes run in turn, OTHER, this, this, OTHER, each building its own
-checkout's kernels and running chip_smoke.front_end_phase with them: each
-kernel against its plain version, with its gates, at 16 kHz B=128,
-22.05 kHz B=8 and 44.1 kHz B=32 (10 s utterances of the benchmark's four
-families), and kernel 2 also on the 60 s single call's input. Each
-process prints its rows as one JSON line; the last line is the summary:
-per kernel and shape, each checkout's CUDA-event ms and device ms
-(torch.profiler), the median over its two processes, and kernel 2's
-integer flips and share of cells more than 0.1 sample off the float64
-search, and each checkout's share of output samples more than 1e-3 off
-the plain path, each path with its own tension and pitch grid, at 16 kHz
-and 44.1 kHz (3.5x, capacity factor 1.33). The card's name and power
+checkout's kernels and timing them with this checkout's clocks
+(chip_smoke.py, speedy_tpu_torch/experiments/timing.py):
+  - kernels 1 and 2 (the analysis front-end and the pitch search) through
+    chip_smoke.front_end_phase: each against its plain version, with its
+    gates, at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 (10 s
+    utterances of the benchmark's four families), and kernel 2 also on
+    the 60 s single call's input;
+  - the launch path: kernel 13 (lane_roll, [64, 512] by 266) and kernel
+    15 (transpose_cols, [512, 128], each form) timed as pairs with their
+    library calls, kernel 3 at the batch shape (hop 160, B=128, K=383),
+    kernel 4 at the single call's shape (B=1, 60 s) and the speed law on
+    the 60 s call's tension; for each, CUDA-event ms, the host's cost of
+    one launch (launch_us: 200 calls back to back) and device ms
+    (torch.profiler), and the parts of one launch in microseconds
+    (launch_parts);
+  - each checkout's share of output samples more than 1e-3 off the plain
+    path, each path with its own tension and pitch grid, at 16 kHz and
+    44.1 kHz (3.5x, capacity factor 1.33).
+Each process prints its rows as one JSON line; the last line is the
+summary: per kernel and shape, each checkout's median over its two
+processes of every time, and kernel 2's integer flips and share of cells
+more than 0.1 sample off the float64 search. The card's name and power
 limit come first.
 
     python3 kernel_ab.py --measure ROOT
@@ -27,6 +37,7 @@ is one such process: the checkout at ROOT, one JSON line.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -35,7 +46,136 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
 KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "integer_flips",
-        "kernel_share_off_f64_0p1", "library_transform_ms")
+        "kernel_share_off_f64_0p1", "library_transform_ms", "launch_us", "library_ms",
+        "library_launch_us")
+TIMES = ("ms", "device_ms", "launch_us", "library_ms", "library_launch_us")
+
+
+def this_timing():
+    """This checkout's experiments/timing.py, loaded by its path: the
+    same clocks for both checkouts' kernels."""
+    path = HERE / "speedy_tpu_torch" / "experiments" / "timing.py"
+    spec = importlib.util.spec_from_file_location("kernel_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev) -> dict:
+    """Kernels 13 and 15 (each form) paired with their library calls,
+    kernel 3 at the batch shape, kernel 4 and the speed law at the single
+    call's: {kernel: {shape: {ms, launch_us, device_ms, ...}}}. Each call's
+    output is checked against its library call or plain version first."""
+    import numpy as np
+    import torch
+
+    clock = this_timing()
+
+    def row(call, library=None):
+        r = {}
+        if library is None:
+            r["ms"] = clock.time_ms(call, dev)
+        else:
+            r["ms"], r["library_ms"] = clock.paired_ms(call, library, dev)
+            r["library_launch_us"] = clock.launch_us(library, dev)
+        r["launch_us"] = clock.launch_us(call, dev)
+        r["device_ms"] = clock.device_ms(call, dev)
+        return r
+
+    rng = np.random.default_rng(0)
+    xr = torch.as_tensor(rng.standard_normal((64, 512)).astype(np.float32), device=dev)
+    roll = lambda: kernels.lane_roll(xr, 266)
+    chip_smoke.check(torch.equal(roll(), torch.roll(xr, 266, 1)), "lane_roll")
+    rows = {"lane_roll": {"64x512 by 266": row(roll, lambda: torch.roll(xr, 266, 1))}}
+
+    rng = np.random.default_rng(0)
+    xt = torch.as_tensor(rng.standard_normal((512, 128)).astype(np.float32), device=dev)
+    eye = torch.eye(512, dtype=torch.float32, device=dev)
+    cols = lambda: xt[:, :8].t().contiguous()
+    rows["transpose_cols"] = {}
+    for form in ("swap", "dot_rhsT", "dot_lhsT"):
+        call = lambda: kernels.transpose_cols(xt, eye, form)
+        chip_smoke.check(torch.equal(call(), cols()), "transpose_cols", form)
+        rows["transpose_cols"][f"512x128 {form}"] = row(call, cols)
+
+    _, xs, gain = inputs["16kHz"]
+    B, L = xs.shape
+    a_i, a_f, valid, capacity = chip_smoke.synth_case(B, L, 160, 383, 3.5, 11, dev)
+    win = torch.as_tensor(wsola_fast._cola_hann(320), device=dev)
+    args = (xs, a_i, a_f, win, gain, valid, 160, capacity)
+    err = float((kernels.gather_synth(*args) - kernels.gather_synth_reference(*args)).abs().max())
+    chip_smoke.check(err <= 1e-5, "gather_synth", err)
+    rows["gather_synth"] = {"hop=160 B=128 K=383": row(lambda: kernels.gather_synth(*args))}
+
+    cfg16 = inputs["16kHz"][0]
+    single = lambda: pipeline.nonlinear_speedup(x60, cfg16, 3.5, 1.0, 0.1, engine="grid",
+                                                device=dev)
+    for name, shape, plain in (("gather_rows", "path: 16kHz B=1 60s 3.5x",
+                                kernels.gather_rows_reference),
+                               ("speed_law", "the 60s call's tension",
+                                kernels.speed_law_reference)):
+        rec = chip_smoke.recorded_call(kernels, name, single)
+        fn = getattr(kernels, name)
+        out, want = fn(*rec), plain(*rec)
+        if name == "speed_law":  # (speeds, durations): the speeds
+            out, want = out[0], want[0]
+        chip_smoke.check(torch.equal(out, want), name, "differs from its plain version")
+        rows[name] = {shape: row(lambda: fn(*rec))}
+    return rows
+
+
+def launch_parts(kernels, _build, dev) -> dict:
+    """Microseconds of each part of a launch, each the median of 5 runs of
+    2,000 calls: the two ways to read the current stream, the two ways to
+    read the current device, a device context entered and left, an output
+    allocated (two ways), kernel 13's ctypes call alone (device already
+    current; also through a handle that keeps the GIL, and with R = 0, which
+    returns before the launch: ctypes' own cost), its whole wrapper, and
+    torch.roll."""
+    import ctypes
+    import time
+
+    import torch
+
+    x = torch.zeros(64, 512, device=dev)
+    out = torch.empty_like(x)
+    lib = _build.load()
+    fn = lib["lane_roll"] if isinstance(lib, dict) else lib.speedy_lane_roll
+    held = getattr(ctypes.PyDLL(str(_build.build())), "speedy_lane_roll")
+    held.argtypes, held.restype = fn.argtypes, fn.restype
+    raw = torch._C._cuda_getCurrentRawStream
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "current_stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: raw(0),
+        "current_device": torch.cuda.current_device,
+        "raw_device": torch._C._cuda_getDevice,
+        "device_context": context,
+        "empty_like": lambda: torch.empty_like(x),
+        "empty": lambda: torch.empty((64, 512), dtype=torch.float32, device=dev),
+        "ctypes_call": lambda: fn(x.data_ptr(), out.data_ptr(), 64, 512, 266, raw(0)),
+        "ctypes_call_gil_held": lambda: held(x.data_ptr(), out.data_ptr(), 64, 512, 266,
+                                             raw(0)),
+        "ctypes_no_launch": lambda: fn(x.data_ptr(), out.data_ptr(), 0, 512, 266, raw(0)),
+        "wrapper": lambda: kernels.lane_roll(x, 266),
+        "torch_roll": lambda: torch.roll(x, 266, 1),
+    }
+    result = {}
+    for name, part in parts.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                part()
+            runs.append((time.perf_counter() - t0) / 2000 * 1e6)
+        result[name] = statistics.median(runs)
+    torch.cuda.synchronize(dev)
+    return result
 
 
 def measure(root: str) -> dict:
@@ -50,7 +190,8 @@ def measure(root: str) -> dict:
 
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import speedy_tpu_torch
-    from speedy_tpu_torch.ops import kernels
+    from speedy_tpu_torch import pipeline
+    from speedy_tpu_torch.ops import _build, kernels, wsola_fast
     from speedy_tpu_torch.parallel import batch
 
     dev = torch.device("cuda", 0)
@@ -59,8 +200,10 @@ def measure(root: str) -> dict:
     inputs = chip_smoke.front_end_inputs(dev, rng)
     x60 = chip_smoke.bench_families(60 * 16000, 16000)[0]
     rows = chip_smoke.front_end_phase(kernels, batch, inputs, x60)
+    rows.update(launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev))
     out = {name: {shape: {k: r[k] for k in KEYS if k in r} for shape, r in by_shape.items()}
            for name, by_shape in rows.items()}
+    out["launch_parts_us"] = launch_parts(kernels, _build, dev)
     # The batch path against the plain path, each with its own tension and
     # pitch grid: the share of valid output samples off by more than 1e-3.
     out["own_grid_share"] = {}
@@ -99,16 +242,21 @@ def main() -> int:
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs[who].append(json.loads(line)["rows"])
-    summary = {"own_grid_share": {who: rs[0]["own_grid_share"] for who, rs in runs.items()}}
+    summary = {"own_grid_share": {who: rs[0]["own_grid_share"] for who, rs in runs.items()},
+               "launch_parts_us": {
+                   who: {k: statistics.median(r["launch_parts_us"][k] for r in rs)
+                         for k in rs[0]["launch_parts_us"]}
+                   for who, rs in runs.items()}}
     for name, by_shape in runs["this"][0].items():
-        if name == "own_grid_share":
+        if name in ("own_grid_share", "launch_parts_us"):
             continue
         for shape in by_shape:
             row = {}
             for who, rs in runs.items():
-                for k in ("ms", "device_ms"):
+                for k in TIMES:
                     vals = [r[name][shape][k] for r in rs if r[name][shape].get(k) is not None]
-                    row[f"{who}_{k}"] = statistics.median(vals) if vals else None
+                    if vals:
+                        row[f"{who}_{k}"] = statistics.median(vals)
                 for k in ("integer_flips", "kernel_share_off_f64_0p1"):
                     if k in rs[0][name][shape]:
                         row[f"{who}_{k}"] = rs[0][name][shape][k]

@@ -61,6 +61,7 @@
 #include <algorithm>
 
 #include "cp_async.cuh"
+#include "shared_grant.cuh"
 
 namespace {
 
@@ -348,7 +349,7 @@ cudaError_t launch_bf16(const float* a, const float* b, float* c, int M, int K, 
   const int per_col = std::max(1, std::min((sh.m_tiles + kGroups - 1) / kGroups, sms / sh.n_tiles));
   const long long blocks = (long long)per_col * sh.n_tiles;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  err = speedy::allow_shared_bytes(bf16_split_kernel<MODE>, bf16_shared_bytes(MODE, kMaxK));
+  err = speedy::grant_shared_bytes(bf16_split_kernel<MODE>, bf16_shared_bytes(MODE, kMaxK));
   if (err != cudaSuccess) return err;
   // Longer K in segments of kMaxK, each launch adding its segment's product.
   for (int k0 = 0; k0 < K; k0 += kMaxK) {

@@ -48,12 +48,4 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory above the default 48 KB must be granted to a kernel before
-// its launch.
-template <typename Kernel>
-inline cudaError_t allow_shared_bytes(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace speedy

@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "shared_grant.cuh"
 
 namespace {
 
@@ -206,7 +207,7 @@ extern "C" int speedy_gather_rows_block(const float* x, const int* starts, const
   if (bad_args(B, L, width, R, w_span)) return cudaErrorInvalidValue;
   const int cap = tile_capacity(w_span);
   const size_t smem = (size_t)cap * sizeof(float);
-  cudaError_t err = speedy::allow_shared_bytes(gather_block_kernel, smem);
+  cudaError_t err = speedy::grant_shared_bytes(gather_block_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((K + R - 1) / R, B);
   gather_block_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -223,7 +224,7 @@ extern "C" int speedy_gather_rows_block_v2(const float* x, const int* starts,
   if (bad_args(B, L, width, R, w_span)) return cudaErrorInvalidValue;
   const int cap = tile_capacity(w_span);
   const size_t smem = 2 * (size_t)cap * sizeof(float);
-  cudaError_t err = speedy::allow_shared_bytes(gather_block_v2_kernel, smem);
+  cudaError_t err = speedy::grant_shared_bytes(gather_block_v2_kernel, smem);
   if (err != cudaSuccess) return err;
   gather_block_v2_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, starts, n_valid, out, L, K, width, R, cap);

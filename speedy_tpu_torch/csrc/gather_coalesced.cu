@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "shared_grant.cuh"
 
 namespace {
 
@@ -81,7 +82,7 @@ extern "C" int speedy_gather_rows_coalesced(const float* x, const int* starts, f
   }
   const int span = span_rows * 128;
   const size_t smem = (size_t)span * sizeof(float);
-  cudaError_t err = speedy::allow_shared_bytes(gather_coalesced_kernel, smem);
+  cudaError_t err = speedy::grant_shared_bytes(gather_coalesced_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(K / kRows, B);
   gather_coalesced_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

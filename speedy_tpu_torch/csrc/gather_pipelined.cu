@@ -37,6 +37,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "shared_grant.cuh"
 
 namespace {
 
@@ -166,7 +167,7 @@ extern "C" int speedy_gather_rows_pipelined(const float* x, const int* starts, f
   }
   const size_t smem = (size_t)kStages * geo.group * geo.row_cap * sizeof(float);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
-  cudaError_t err = speedy::allow_shared_bytes(gather_pipelined_kernel, smem);
+  cudaError_t err = speedy::grant_shared_bytes(gather_pipelined_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, B);
   gather_pipelined_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -13,7 +13,13 @@
 // Design: a row has no tiles on the card. One block of threads per row
 // and 256-word stretch of it; thread c writes out[r, c] from
 // x[r, (c - shift) mod G], so the writes are consecutive and the reads are
-// consecutive but for the one wrap.
+// consecutive but for the one wrap. The body runs in 1.1 us of device
+// time (torch.profiler on an NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py), the card's floor for a launch, and stays as it is:
+// what this kernel loses to torch.roll on is the host's launch path,
+// which ops/kernels.py::_launch keeps short (a table bound once, the
+// stream's raw handle, no device context when the tensor's device is
+// current).
 
 #include <cuda_runtime.h>
 

@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "shared_grant.cuh"
+
 namespace {
 
 constexpr int kThreads = 256, kOut = 8;
@@ -66,8 +68,7 @@ template <bool kVec>
 cudaError_t launch(const float* a, const float* b, const float* c, float* o, int B, int n,
                    int C, float amp, int bytes, cudaStream_t s) {
   if (bytes > 48 * 1024) {  // above the default, a kernel must ask for it
-    const cudaError_t err = cudaFuncSetAttribute(
-        narrow_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = speedy::grant_shared_bytes(narrow_kernel<kVec>, bytes);
     if (err != cudaSuccess) return err;
   }
   narrow_kernel<kVec><<<B, kThreads, bytes, s>>>(a, b, c, o, n, C, amp);

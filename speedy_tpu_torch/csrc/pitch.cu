@@ -47,6 +47,8 @@
 
 #include <cuda_runtime.h>
 
+#include "shared_grant.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;   // cells a block
@@ -204,8 +206,7 @@ cudaError_t launch(const float* x, const float* gain, float* period, int B, int 
   const int per_warp =
       warp_floats(seg_pad(taps, minp, R, sweeps), taps + maxp, maxp - minp + 1);
   const size_t smem = (size_t)kWarps * per_warp * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pitch_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = speedy::grant_shared_bytes(pitch_kernel<R>, smem);
   if (err != cudaSuccess) return err;
   // 16-byte segment loads need 16-byte aligned rows and cell starts.
   const int vec4 = (reinterpret_cast<size_t>(x) % 16 == 0) && L % 4 == 0 && G % 4 == 0;

@@ -19,11 +19,14 @@ Each module has one function, check(device). It first asks the
 probe's question once through its kernel, each row recording the
 launches that took (its answer pass); then it holds the kernel to its
 plain version, and to the library call where there is one; then, on the
-card, it takes the times that chip_smoke.py reports: the median
-CUDA-event time of a call (ms; for a kernel far under a launch, the
-launch path's) and the device time of its kernel alone (device_ms, by
-torch.profiler). It returns one row a case with the answer, the errors
-and the times. A failed check raises ProbeFailure. On the CPU the
+card, it takes the times that chip_smoke.py reports (timing.py): the
+median CUDA-event time of a call (ms; for a kernel far under a launch,
+the launch path's) and the device time of its kernel alone (device_ms,
+by torch.profiler). Kernels 13 and 15, whose bodies run at the card's
+floor for a launch, time kernel and library call as pairs in one loop
+(paired_ms) and add each one's host cost of a launch (launch_us,
+library_launch_us). It returns one row a case with the answer, the
+errors and the times. A failed check raises ProbeFailure. On the CPU the
 wrappers run their plain versions, and no time is taken.
 """
 
@@ -31,10 +34,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
+
+from .timing import device_ms, launch_us, paired_ms, time_ms  # noqa: F401
 
 
 class ProbeFailure(AssertionError):
@@ -56,49 +60,6 @@ def probe_device(device) -> torch.device:
     if dev.type == "cuda":
         dft.no_tf32()
     return dev
-
-
-def time_ms(fn: Callable, device: torch.device, reps: int = 20,
-            warmup: int = 3) -> Optional[float]:
-    """Median device time of fn() in ms, by CUDA events around each call;
-    None off the card (not measured)."""
-    if device.type != "cuda":
-        return None
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn: Callable, device: torch.device, reps: int = 20) -> Optional[float]:
-    """Device time of one fn() call in ms: the durations of the device
-    kernels (and copies) torch.profiler records over reps calls, after one
-    warm-up call, summed and divided by reps. Unlike time_ms it leaves out
-    the host's launch path. None off the card, or when the profiler records
-    no device work (not measured)."""
-    if device.type != "cuda":
-        return None
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(device)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        return None
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
 
 
 def add_increments(rows: list) -> list:

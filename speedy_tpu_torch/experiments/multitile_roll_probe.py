@@ -10,8 +10,9 @@ that lane offset; the probe asked whether Mosaic lowers the rotate.
     python -m speedy_tpu_torch.experiments.multitile_roll_probe [--device cuda]
 
 Prints one JSON line: whether the kernel equals np.roll bit for bit, and
-on the card the median ms of the kernel, its plain version and the
-library call torch.roll.
+on the card the kernel's and the library call torch.roll's median ms,
+timed as pairs, each one's host cost of a launch (us), the kernel's and
+the library's device ms, and the plain version's ms.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from . import device_ms, launched, probe_device, require, run_main, time_ms
+from . import (device_ms, launch_us, launched, paired_ms, probe_device, require, run_main,
+               time_ms)
 
 GC, G, SHIFT = 64, 512, 512 - 246  # experiments/multitile_roll_probe.py:18
 
@@ -42,13 +44,16 @@ def check(device="cuda") -> list:
     require(exact, "lane roll differs from np.roll")
     require(torch.equal(out, plain), "lane roll differs from the plain version")
     require(torch.equal(out, torch.roll(x, SHIFT, 1)), "lane roll differs from torch.roll")
+    call = lambda: kernels.lane_roll(x, SHIFT)
+    library = lambda: torch.roll(x, SHIFT, 1)
+    ms, library_ms = paired_ms(call, library, device)
     return [dict(
         probe="multitile_roll", R=GC, G=G, shift=SHIFT, launches=n, exact=exact,
         max_abs_err=float((out - plain).abs().max()),
-        ms=time_ms(lambda: kernels.lane_roll(x, SHIFT), device),
-        device_ms=device_ms(lambda: kernels.lane_roll(x, SHIFT), device),
-        plain_ms=time_ms(lambda: kernels.lane_roll_reference(x, SHIFT), device),
-        library_ms=time_ms(lambda: torch.roll(x, SHIFT, 1), device))]
+        ms=ms, library_ms=library_ms, launch_us=launch_us(call, device),
+        library_launch_us=launch_us(library, device), device_ms=device_ms(call, device),
+        library_device_ms=device_ms(library, device),
+        plain_ms=time_ms(lambda: kernels.lane_roll_reference(x, SHIFT), device))]
 
 
 def main(argv=None) -> int:

@@ -129,20 +129,31 @@ def build() -> pathlib.Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def _library() -> ctypes.CDLL:
     """The kernels' library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     lib.speedy_cuda_error_string.argtypes = [ctypes.c_int]
     lib.speedy_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load() -> dict:
+    """Kernel name (the C entry point's without "speedy_") -> its ctypes
+    function, argument and return types set: bound once, on first call,
+    so a launch looks its function up by name and builds nothing."""
+    lib = _library()
+    table = {}
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        table[name[len("speedy_"):]] = fn
+    return table
+
+
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+    """Raise if a C entry point returned a CUDA error (lib: _library())."""
     if err != 0:
         msg = lib.speedy_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

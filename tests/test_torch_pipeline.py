@@ -38,6 +38,7 @@ CASES = {
     "16k-3.5x-gain-cap1.33": (16000, 4, 32000, 3.5, 1.33, True, (0, 2500, 0, 0), None),
     "16k-0.7x": (16000, 2, 12000, 0.7, None, False, (0, 1700), None),
     "22k-3.0x": (22050, 2, 44100, 3.0, None, False, (0, 900), None),
+    "44k-3.5x-gain-cap1.33": (44100, 2, 441000, 3.5, 1.33, True, (0, 20000), None),
     "clip-shorter-than-lookahead": (16000, 2, 1400, 2.0, None, True, (0, 500), 960),
 }
 

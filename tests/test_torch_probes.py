@@ -162,6 +162,23 @@ def test_transpose_probe_answers_exact():
         (f, True, 0.0, None) for f in kernels.TRANSPOSE_FORMS]
 
 
+@pytest.mark.parametrize("form", mosaic_transpose_probe.DOT_FORMS)
+def test_transpose_dot_forms_are_products(form):
+    """Beyond the identity the dot forms are products: on a seeded normal
+    E the plain version (the wrapper on the CPU) lies within the float32
+    bound F * 2^-24 * sum |x||E| of the float64 product, output by output,
+    and is not x[:, :8]^T."""
+    x, _ = mosaic_transpose_probe.inputs("cpu")
+    E = mosaic_transpose_probe.seeded_eye("cpu")
+    got = kernels.transpose_cols_reference(x, E, form)
+    assert torch.equal(kernels.transpose_cols(x, E, form), got)
+    want = kernels.transpose_cols_reference(x.double(), E.double(), form)
+    err = (got.double() - want).abs()
+    assert bool((err <= mosaic_transpose_probe.product_bound(x, E, form)).all())
+    assert float(err.max()) > 0.0  # float32 rounding shows: the bound is not vacuous
+    assert float((got - x[:, :8].t()).abs().max()) > 1.0
+
+
 # ---------------------------------------------------------------------------
 # Kernel 13: the lane roll
 # ---------------------------------------------------------------------------
