@@ -6,10 +6,13 @@
 Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc, holds
 each kernel against its plain PyTorch version on the card (kernels 1 and
 2 at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 x 10 s, with their
-device times, kernel 1 also at the other sample rates; the row gathers
-4-8 also against each other, at the grid engine's shape B=128 x 10 s at
-16 kHz, K=1,009 rows of 321), and drives the port's paths, each against
-the same call through the plain versions:
+device times, kernel 1 also at the other sample rates; kernel 3 bitwise
+to its plain version and to ops/synth_model.py's model of its plan at
+hops 160 (B=128), 220, 441, 110 and 480, on one 60 s row and on edge
+cases, with device times; the row gathers 4-8 also against each other,
+at the grid engine's shape B=128 x 10 s at 16 kHz, K=1,009 rows of 321),
+and drives the port's paths, each against the same call through the
+plain versions:
   - the batched path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz,
     3.5x, capacity factor 1.33, per-utterance gain), then the dryrun sweep
     cases (0.7x with a ragged length; 22.05 kHz 3.0x), then B=32 x 10 s at
@@ -470,33 +473,92 @@ def synth_case(B, L, hop, K, rate, seed, device):
     return t(a_i), t(a_f), t(valid), capacity
 
 
-def check_synth(kernels, x, gain, hop, K, rate, label):
+def check_synth(kernels, synth_model, x, gain, hop, K, rate, label, valid=None, a_i=None):
+    """Kernel 3 on x [B, L] at chunk positions from synth_case (or a_i, and
+    valid, where given), held bitwise (torch.equal) to its plain version
+    and to synth_model's float32 model of its plan; its events ms, device
+    ms (torch.profiler), plain ms, byte bound and the share of the bound it
+    reaches."""
     import torch
     from speedy_tpu_torch.ops.wsola_fast import _cola_hann
 
     B, L = x.shape
-    a_i, a_f, valid, capacity = synth_case(B, L, hop, K, rate, 11, x.device)
+    case_i, a_f, case_valid, capacity = synth_case(B, L, hop, K, rate, 11, x.device)
+    a_i = case_i if a_i is None else a_i
+    valid = case_valid if valid is None else torch.as_tensor(
+        np.asarray(valid, np.int32), device=x.device)
     win = torch.as_tensor(_cola_hann(2 * hop), device=x.device)
     args = (x, a_i, a_f, win, gain, valid, hop, capacity)
     out_k = kernels.gather_synth(*args)
     out_p = kernels.gather_synth_reference(*args)
+    out_m = synth_model.gather_synth_model(*args)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     check(bool(torch.isfinite(out_k).all()), label, "non-finite")
-    check(err <= 1e-5, label, "max|d|", err)
-    ms = time_ms(lambda: kernels.gather_synth(*args))
+    check(torch.equal(out_k, out_p), label, "kernel 3 differs from its plain version", err)
+    check(torch.equal(out_k, out_m), label, "kernel 3 differs from its plan's model",
+          float((out_k - out_m).abs().max()))
+    call = lambda: kernels.gather_synth(*args)
+    ms = time_ms(call)
+    device_ms = device_profile(call)[0]
     plain_ms = time_ms(lambda: kernels.gather_synth_reference(*args))
     # The output written once; read once: the 2*hop + 1 samples of every
     # chunk that feeds a valid output slot, and the controls.
-    K = a_i.shape[1]
     live = torch.arange(K, device=x.device)[None, :] * hop < valid[:, None]
     nbytes = 4 * (B * capacity + covered_samples(a_i, 2 * hop + 1, live, L)
                   + 2 * B * K + 2 * hop + 2 * B)
     bound_ms, bound_by = bound(nbytes)
-    emit("kernel", kernel="gather_synth", shape=label, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    plan = synth_model.synth_plan(B, hop, capacity)
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                  bound_share=None if device_ms is None else bound_ms / device_ms)
+    emit("kernel", kernel="gather_synth", shape=label, run=plan.run, blocks=B * plan.runs,
+         threads=plan.threads, bitwise=True, bytes=nbytes, **result)
+    return result
+
+
+def synth_phase(kernels, synth_model, inputs, x60, dev) -> dict:
+    """Kernel 3 at the batch step's shape (16 kHz B=128, hop 160, K=383), at
+    22.05 and 44.1 kHz (hops 220 and 441), at hops 110 and 480 (11.025 and
+    48 kHz, B=8 x 10 s), on one 60 s row at 16 kHz (B=1, as the single
+    bounded call launches it), and on edge cases: rows with valid 0, cut inside a run
+    and equal to capacity; chunk starts at 0 and clipped to L-1 on short
+    rows (reads past the end); a row whose every start is -1 (reads before
+    the start). Shape label -> result."""
+    import torch
+
+    (_, xs16, gain16), (_, xs22, gain22) = inputs["16kHz"], inputs["22.05kHz"]
+    _, xs44, _ = inputs["44.1kHz"]
+    rows = {}
+    rows["hop=160 B=128 K=383"] = check_synth(
+        kernels, synth_model, xs16, gain16, 160, 383, 3.5, "hop=160 B=128 K=383")
+    rows["hop=220 B=8 K=400"] = check_synth(
+        kernels, synth_model, xs22, gain22, 220, 400, 3.0, "hop=220 B=8 K=400")
+    rows["hop=441 B=4 K=400"] = check_synth(
+        kernels, synth_model, xs44[:4].contiguous(), gain22[:4].contiguous(), 441, 400, 3.0,
+        "hop=441 B=4 K=400")
+    for sr in (11025, 48000):
+        hop = sr // 100
+        x = torch.as_tensor(batch_of(bench_families(10 * sr, sr), 8), device=dev)
+        label = f"hop={hop} B=8 K=400"
+        rows[label] = check_synth(kernels, synth_model, x, gain22, hop, 400, 3.0, label)
+    x1 = torch.as_tensor(x60, device=dev)[None]
+    rows["hop=160 B=1 60s K=1715"] = check_synth(
+        kernels, synth_model, x1, gain16[:1].contiguous(), 160, 1715, 3.5,
+        "hop=160 B=1 60s K=1715")
+    g3 = gain16[:3].contiguous()
+    check_synth(kernels, synth_model, xs16[:3].contiguous(), g3, 160, 383, 3.5,
+                "valid 0 / cut in a run / capacity", valid=[0, 43 * 160 + 13, 382 * 160])
+    for hop in (160, 441):
+        L = 40 * hop + 3
+        short = xs16[:3, :L].contiguous()
+        check_synth(kernels, synth_model, short, g3, hop, 200, 3.5,
+                    f"hop={hop} L={L}: starts at 0 and clipped to L-1")
+    check_synth(kernels, synth_model, xs16[:2, :20000].contiguous(), gain16[:2].contiguous(),
+                160, 100, 3.5, "starts -1 (an empty row's positions)",
+                valid=[99 * 160, 99 * 160],
+                a_i=torch.full((2, 100), -1, dtype=torch.int32, device=dev))
+    return rows
 
 
 # Rate label -> (sample rate, batch): 10 s utterances of the four families,
@@ -1394,7 +1456,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline
     from speedy_tpu_torch.io import wave
-    from speedy_tpu_torch.ops import _build, analysis_fft, kernels, wsola_fast
+    from speedy_tpu_torch.ops import _build, analysis_fft, kernels, synth_model, wsola_fast
     from speedy_tpu_torch.parallel import batch
 
     # ---- 1. device ----
@@ -1453,12 +1515,9 @@ def main() -> int:
         "torch.fft.rfft of the frames at n = 2W, and abs: the transform alone, not the "
         "kernel's function")
     tab16 = batch.device_tables(cfg16, dev)
-    results["gather_synth"] = check_synth(
-        kernels, xs16, gain16, 160, 383, 3.5, "hop=160 B=128 K=383")
-    check_synth(kernels, xs22, gain22, 220, 400, 3.0, "hop=220 B=8 K=400")
+    synth_rows = synth_phase(kernels, synth_model, inputs, x60, dev)
+    results["gather_synth"] = dict(synth_rows["hop=160 B=128 K=383"], shapes=synth_rows)
     _, xs44, gain44 = inputs["44.1kHz"]
-    check_synth(kernels, xs44[:4].contiguous(), gain22[:4].contiguous(), 441, 400, 3.0,
-                "hop=441 B=4 K=400")
     # Kernel 4 at the single-utterance path's own shape (its arguments
     # recorded from one nonlinear_speedup call on 60 s) and at 44.1 kHz.
     path_args = recorded_call(kernels, "gather_rows", lambda: pipeline.nonlinear_speedup(
@@ -1704,6 +1763,7 @@ def main() -> int:
         "analysis_energy_lsd": ("device_ms", "library_transform_ms", "library_transform",
                                 "bodies", "shapes"),
         "pitch_ssd": ("device_ms", "shapes"),
+        "gather_synth": ("device_ms", "bound_share", "shapes"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

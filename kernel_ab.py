@@ -15,12 +15,16 @@ checkout's kernels and timing them with this checkout's clocks
     the 60 s single call's input;
   - the launch path: kernel 13 (lane_roll, [64, 512] by 266) and kernel
     15 (transpose_cols, [512, 128], each form) timed as pairs with their
-    library calls, kernel 3 at the batch shape (hop 160, B=128, K=383),
-    kernel 4 at the single call's shape (B=1, 60 s) and the speed law on
-    the 60 s call's tension; for each, CUDA-event ms, the host's cost of
-    one launch (launch_us: 200 calls back to back) and device ms
-    (torch.profiler), and the parts of one launch in microseconds
-    (launch_parts);
+    library calls, kernel 3 at the batch step's shape (hop 160, B=128,
+    K=383), at hops 220 (B=8), 441 (B=4), 80, 110 and 480 (B=8) and on
+    one 60 s row (synth_cases), kernel 4 at the single call's shape (B=1,
+    60 s) and the speed law on the 60 s call's tension; for each,
+    CUDA-event ms, the host's cost of one launch (launch_us: 200 calls
+    back to back) and device ms (torch.profiler), and the parts of one
+    launch in microseconds (launch_parts);
+  - where the checkout has ops/synth_model.py (kernel 3 in runs of S
+    slots a block), kernel 3's device ms at S = 1 .. 16 beside the plan's
+    S, at the same shapes (synth_runs);
   - each checkout's share of output samples more than 1e-3 off the plain
     path, each path with its own tension and pitch grid, at 16 kHz and
     44.1 kHz (3.5x, capacity factor 1.33).
@@ -51,6 +55,12 @@ KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "integer_flips",
 TIMES = ("ms", "device_ms", "launch_us", "library_ms", "library_launch_us")
 
 
+def median_of(values):
+    """The median of the values that were measured; None if none was."""
+    got = [v for v in values if v is not None]
+    return statistics.median(got) if got else None
+
+
 def this_timing():
     """This checkout's experiments/timing.py, loaded by its path: the
     same clocks for both checkouts' kernels."""
@@ -61,11 +71,12 @@ def this_timing():
     return mod
 
 
-def launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev) -> dict:
+def launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev) -> dict:
     """Kernels 13 and 15 (each form) paired with their library calls,
-    kernel 3 at the batch shape, kernel 4 and the speed law at the single
-    call's: {kernel: {shape: {ms, launch_us, device_ms, ...}}}. Each call's
-    output is checked against its library call or plain version first."""
+    kernel 3 at each of synth's shapes (synth_cases), kernel 4 and the
+    speed law at the single call's: {kernel: {shape: {ms, launch_us,
+    device_ms, ...}}}. Each call's output is checked against its library
+    call or plain version first."""
     import numpy as np
     import torch
 
@@ -98,14 +109,12 @@ def launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev) -> 
         chip_smoke.check(torch.equal(call(), cols()), "transpose_cols", form)
         rows["transpose_cols"][f"512x128 {form}"] = row(call, cols)
 
-    _, xs, gain = inputs["16kHz"]
-    B, L = xs.shape
-    a_i, a_f, valid, capacity = chip_smoke.synth_case(B, L, 160, 383, 3.5, 11, dev)
-    win = torch.as_tensor(wsola_fast._cola_hann(320), device=dev)
-    args = (xs, a_i, a_f, win, gain, valid, 160, capacity)
-    err = float((kernels.gather_synth(*args) - kernels.gather_synth_reference(*args)).abs().max())
-    chip_smoke.check(err <= 1e-5, "gather_synth", err)
-    rows["gather_synth"] = {"hop=160 B=128 K=383": row(lambda: kernels.gather_synth(*args))}
+    rows["gather_synth"] = {}
+    for label, args in synth.items():
+        err = float((kernels.gather_synth(*args)
+                     - kernels.gather_synth_reference(*args)).abs().max())
+        chip_smoke.check(err <= 1e-5, "gather_synth", label, err)
+        rows["gather_synth"][label] = row(lambda: kernels.gather_synth(*args))
 
     cfg16 = inputs["16kHz"][0]
     single = lambda: pipeline.nonlinear_speedup(x60, cfg16, 3.5, 1.0, 0.1, engine="grid",
@@ -121,6 +130,72 @@ def launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev) -> 
             out, want = out[0], want[0]
         chip_smoke.check(torch.equal(out, want), name, "differs from its plain version")
         rows[name] = {shape: row(lambda: fn(*rec))}
+    return rows
+
+
+SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def synth_cases(chip_smoke, wsola_fast, inputs, dev) -> dict:
+    """Kernel 3's arguments at chip_smoke.py's shapes (hop 160 B=128, hop
+    220 B=8, hop 441 B=4, one 60 s row at 16 kHz) and at hops 80, 110 and
+    480 (B=8, 10 s of the families at 8, 11.025 and 48 kHz), chunk
+    positions from chip_smoke.synth_case: label -> args."""
+    import torch
+
+    (_, xs16, g16), (_, xs22, g22), (_, xs44, _) = (
+        inputs["16kHz"], inputs["22.05kHz"], inputs["44.1kHz"])
+    x60 = chip_smoke.bench_families(60 * 16000, 16000)[:1]
+    shapes = {"hop=160 B=128 K=383": (xs16, g16, 160, 383, 3.5),
+              "hop=220 B=8 K=400": (xs22, g22, 220, 400, 3.0),
+              "hop=441 B=4 K=400": (xs44[:4].contiguous(), g22[:4].contiguous(), 441, 400, 3.0),
+              "hop=160 B=1 60s K=1715": (torch.as_tensor(x60, device=dev),
+                                         g16[:1].contiguous(), 160, 1715, 3.5)}
+    for sr in (8000, 11025, 48000):
+        x = chip_smoke.batch_of(chip_smoke.bench_families(10 * sr, sr), 8)
+        shapes[f"hop={sr // 100} B=8 K=400"] = (torch.as_tensor(x, device=dev), g22,
+                                                sr // 100, 400, 3.0)
+    out = {}
+    for label, (x, gain, hop, K, rate) in shapes.items():
+        B, L = x.shape
+        a_i, a_f, valid, capacity = chip_smoke.synth_case(B, L, hop, K, rate, 11, dev)
+        win = torch.as_tensor(wsola_fast._cola_hann(2 * hop), device=dev)
+        out[label] = (x, a_i, a_f, win, gain, valid, hop, capacity)
+    return out
+
+
+def synth_runs(chip_smoke, kernels, _build, synth, dev) -> dict:
+    """Kernel 3's device ms at each run length S of SYNTH_RUNS (the median
+    of three profiler readings), launched through its C entry point with S
+    given, each output held bitwise to the plain version: label ->
+    {"plan": the plan's S, "S<n>": ms}. Empty for a checkout without
+    ops/synth_model.py."""
+    import torch
+
+    try:
+        from speedy_tpu_torch.ops import synth_model
+    except ImportError:
+        return {}
+    clock = this_timing()
+    fn = _build.load()["gather_synth"]
+    rows = {}
+    for label, args in synth.items():
+        x, a_i, a_f, win, gain, valid, hop, capacity = args
+        (B, L), K = x.shape, a_i.shape[1]
+        want = kernels.gather_synth_reference(*args)
+        out = torch.empty_like(want)
+        ptrs = [t.data_ptr() for t in (x, a_i, a_f, win, gain, valid, out)]
+        row = {"plan": synth_model.synth_plan(B, hop, capacity).run}
+        for run in SYNTH_RUNS:
+            call = lambda: fn(*ptrs, B, L, K, hop, capacity, run,
+                              torch._C._cuda_getCurrentRawStream(dev.index))
+            out.fill_(float("nan"))
+            chip_smoke.check(call() == 0, "gather_synth", label, "S", run)
+            chip_smoke.check(torch.equal(out, want), "gather_synth", label, "S", run, "differs")
+            # The median of three profiler readings: now and then the
+            # profiler records only part of the device work.
+            row[f"S{run}"] = median_of([clock.device_ms(call, dev) for _ in range(3)])
+        rows[label] = row
     return rows
 
 
@@ -200,10 +275,12 @@ def measure(root: str) -> dict:
     inputs = chip_smoke.front_end_inputs(dev, rng)
     x60 = chip_smoke.bench_families(60 * 16000, 16000)[0]
     rows = chip_smoke.front_end_phase(kernels, batch, inputs, x60)
-    rows.update(launch_rows(chip_smoke, kernels, pipeline, wsola_fast, inputs, x60, dev))
+    synth = synth_cases(chip_smoke, wsola_fast, inputs, dev)
+    rows.update(launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev))
     out = {name: {shape: {k: r[k] for k in KEYS if k in r} for shape, r in by_shape.items()}
            for name, by_shape in rows.items()}
     out["launch_parts_us"] = launch_parts(kernels, _build, dev)
+    out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
     # The batch path against the plain path, each with its own tension and
     # pitch grid: the share of valid output samples off by more than 1e-3.
     out["own_grid_share"] = {}
@@ -247,8 +324,11 @@ def main() -> int:
                    who: {k: statistics.median(r["launch_parts_us"][k] for r in rs)
                          for k in rs[0]["launch_parts_us"]}
                    for who, rs in runs.items()}}
+    summary["synth_runs"] = {
+        label: {k: median_of([r["synth_runs"][label][k] for r in runs["this"]]) for k in row}
+        for label, row in runs["this"][0]["synth_runs"].items()}
     for name, by_shape in runs["this"][0].items():
-        if name in ("own_grid_share", "launch_parts_us"):
+        if name in ("own_grid_share", "launch_parts_us", "synth_runs"):
             continue
         for shape in by_shape:
             row = {}

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "speedy_analysis_energy_lsd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "speedy_pitch_ssd": [_P] * 3 + [_I] * 7 + [_P],
-    "speedy_gather_synth": [_P] * 7 + [_I] * 5 + [_P],
+    "speedy_gather_synth": [_P] * 7 + [_I] * 6 + [_P],
     "speedy_gather_rows": [_P] * 4 + [_I] * 4 + [_P],
     "speedy_gather_rows_block": [_P] * 4 + [_I] * 6 + [_P],
     "speedy_gather_rows_block_v2": [_P] * 4 + [_I] * 6 + [_P],

@@ -15,7 +15,7 @@ CSRC = pathlib.Path(_build.__file__).resolve().parent.parent / "csrc"
 # The C entry points whose kernels take dynamic shared memory above the
 # default 48 KB, and so must grant it.
 GRANTING_SOURCES = ("analysis.cu", "pitch.cu", "narrow_operands.cu", "gather_pipelined.cu",
-                    "gather_block.cu", "gather_coalesced.cu", "bf16_split.cu")
+                    "gather_block.cu", "gather_coalesced.cu", "bf16_split.cu", "synth.cu")
 STREAM = 0x5EED
 
 
