@@ -332,6 +332,7 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
     times, the plain version's, and the transform alone by
     torch.fft.rfft."""
     import torch
+    from speedy_tpu_torch.ops import analysis_fft
 
     T = cfg.num_frames(x.shape[1], integer_step=True)
     args = recorded_call(kernels, "analysis_energy_lsd",
@@ -368,11 +369,29 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=None, device_ms=device_ms,
                   library_transform_ms=library_transform_ms)
+    # Where the plan runs the direct sum: the share of its floor the kernel
+    # reaches, and whether a pair of bins reads one twiddle (the table
+    # mirrored) or two (own entries; None for a plan without the choice).
+    plan = analysis_fft.fft_plan(W)
+    direct = {}
+    if plan.route == "direct":
+        mirrored = getattr(plan, "mirrored", None)
+        direct = dict(floor_share=None if device_ms is None else direct_sum_floor_ms / device_ms,
+                      pairing=None if mirrored is None else
+                      ("mirrored" if mirrored else "own entries"))
     emit("kernel", kernel="analysis_energy_lsd", shape=label, frames=B * T,
          energy_max_abs_err=err, lsd_max_abs_err=float(dl.max()),
          lsd_frames_out_max=worst_frames, lsd_mask_edge_frames=edges, bytes=nbytes,
-         direct_sum_floor_ms=direct_sum_floor_ms, **result)
+         direct_sum_floor_ms=direct_sum_floor_ms, **direct, **result)
     return result
+
+
+def short_input(sr: int, dev):
+    """2 s of the first two families at sr, [2, 2*sr] on dev: kernel 1's
+    input at the rates beside the front-end shapes."""
+    import torch
+
+    return torch.as_tensor(batch_of(bench_families(2 * sr, sr), 2), device=dev)
 
 
 def check_pitch(kernels, x, gain, tables, cfg, label):
@@ -1505,7 +1524,7 @@ def main() -> int:
     # rate: the plan its wrapper picks from W.
     for sr in (8000, 11025, 24000, 32000, 48000, 7000, 12000):
         cfg = SpeedyConfig(sr)
-        x = torch.as_tensor(batch_of(bench_families(2 * sr, sr), 2), device=dev)
+        x = short_input(sr, dev)
         check_analysis(kernels, batch, x, gain16[:2].contiguous(), cfg,
                        f"{sr / 1000:g}kHz B=2 L={2 * sr}", edge_frames=True)
     results["analysis_energy_lsd"]["bodies"] = {

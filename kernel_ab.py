@@ -12,7 +12,10 @@ checkout's kernels and timing them with this checkout's clocks
     chip_smoke.front_end_phase: each against its plain version, with its
     gates, at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 (10 s
     utterances of the benchmark's four families), and kernel 2 also on
-    the 60 s single call's input;
+    the 60 s single call's input; kernel 1 also at 7 and 12 kHz B=2 x 2 s
+    (chip_smoke.short_input), whose W run the direct sum, and a sha256 of
+    its energy and lsd bytes at 44.1 kHz B=32, 7 and 12 kHz
+    (analysis_digests);
   - the launch path: kernel 13 (lane_roll, [64, 512] by 266) and kernel
     15 (transpose_cols, [512, 128], each form) timed as pairs with their
     library calls, kernel 3 at the batch step's shape (hop 160, B=128,
@@ -31,8 +34,9 @@ checkout's kernels and timing them with this checkout's clocks
 Each process prints its rows as one JSON line; the last line is the
 summary: per kernel and shape, each checkout's median over its two
 processes of every time, and kernel 2's integer flips and share of cells
-more than 0.1 sample off the float64 search. The card's name and power
-limit come first.
+more than 0.1 sample off the float64 search; per digest shape, whether
+all four processes gave the same bytes (bitwise_to_other). The card's
+name and power limit come first.
 
     python3 kernel_ab.py --measure ROOT
 
@@ -134,6 +138,39 @@ def launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev) -> dict:
 
 
 SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
+# Kernel 1's direct-sum rates beside the front-end shapes: label -> rate.
+SHORT_RATES = {"7kHz B=2": 7000, "12kHz B=2": 12000}
+
+
+def short_cases(chip_smoke, inputs, dev) -> dict:
+    """Kernel 1's inputs at SHORT_RATES as chip_smoke.py gives them:
+    label -> (cfg, x [2, 2 s], gain)."""
+    from speedy_tpu_torch.config import SpeedyConfig
+
+    gain = inputs["16kHz"][2][:2].contiguous()
+    return {label: (SpeedyConfig(sr), chip_smoke.short_input(sr, dev), gain)
+            for label, sr in SHORT_RATES.items()}
+
+
+def analysis_digests(chip_smoke, kernels, batch, cases) -> dict:
+    """sha256 of kernel 1's energy then lsd bytes on the arguments
+    batch.batched_analysis passes it, for each (cfg, x, gain) of cases:
+    label -> hex digest."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for label, (cfg, x, gain) in cases.items():
+        T = cfg.num_frames(x.shape[1], integer_step=True)
+        args = chip_smoke.recorded_call(kernels, "analysis_energy_lsd",
+                                        lambda: batch.batched_analysis(x, cfg, T, gain))
+        e, l = kernels.analysis_energy_lsd(*args)
+        torch.cuda.synchronize()
+        h = hashlib.sha256(e.cpu().numpy().tobytes())
+        h.update(l.cpu().numpy().tobytes())
+        out[label] = h.hexdigest()
+    return out
 
 
 def synth_cases(chip_smoke, wsola_fast, inputs, dev) -> dict:
@@ -275,11 +312,17 @@ def measure(root: str) -> dict:
     inputs = chip_smoke.front_end_inputs(dev, rng)
     x60 = chip_smoke.bench_families(60 * 16000, 16000)[0]
     rows = chip_smoke.front_end_phase(kernels, batch, inputs, x60)
+    short = short_cases(chip_smoke, inputs, dev)
+    for label, (cfg, x, gain) in short.items():
+        rows["analysis_energy_lsd"][label] = chip_smoke.check_analysis(
+            kernels, batch, x, gain, cfg, f"{label} L={x.shape[1]}", edge_frames=True)
     synth = synth_cases(chip_smoke, wsola_fast, inputs, dev)
     rows.update(launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev))
     out = {name: {shape: {k: r[k] for k in KEYS if k in r} for shape, r in by_shape.items()}
            for name, by_shape in rows.items()}
     out["launch_parts_us"] = launch_parts(kernels, _build, dev)
+    out["analysis_digests"] = analysis_digests(
+        chip_smoke, kernels, batch, {"44.1kHz B=32": inputs["44.1kHz"], **short})
     out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
     # The batch path against the plain path, each with its own tension and
     # pitch grid: the share of valid output samples off by more than 1e-3.
@@ -324,11 +367,16 @@ def main() -> int:
                    who: {k: statistics.median(r["launch_parts_us"][k] for r in rs)
                          for k in rs[0]["launch_parts_us"]}
                    for who, rs in runs.items()}}
+    summary["analysis_digests"] = {
+        label: {"this": runs["this"][0]["analysis_digests"][label],
+                "bitwise_to_other": len({r["analysis_digests"][label]
+                                         for rs in runs.values() for r in rs}) == 1}
+        for label in runs["this"][0]["analysis_digests"]}
     summary["synth_runs"] = {
         label: {k: median_of([r["synth_runs"][label][k] for r in runs["this"]]) for k in row}
         for label, row in runs["this"][0]["synth_runs"].items()}
     for name, by_shape in runs["this"][0].items():
-        if name in ("own_grid_share", "launch_parts_us", "synth_runs"):
+        if name in ("own_grid_share", "launch_parts_us", "synth_runs", "analysis_digests"):
             continue
         for shape in by_shape:
             row = {}

@@ -24,7 +24,11 @@ bodies:
              whose upper half is zero, so it only duplicates each sample.
   direct     every other W, among them those with a larger prime factor
              (44.1 kHz: W = 661, a prime): the direct sum, 2W(W-1)
-             multiply-adds a frame. A chirp-z
+             multiply-adds a frame, bins k and W-k by one thread. Where
+             the float32 table mirrors the pair exactly (mirrored: every
+             prime W), bin W-k's twiddle at sample n is bin k's with the
+             signs (-1)^n and -(-1)^n, so one table read serves both; else
+             each bin reads its own. A chirp-z
              transform (power-of-two FFTs of 1,024 points at 44.1 kHz) held
              float32's accuracy against float64 but not chip_smoke.py's
              tension gate against the plain version, whose matmul rounds
@@ -69,6 +73,7 @@ class FftPlan(NamedTuple):
     route: str         # "stockham" or "direct"
     radices: tuple     # stockham: the W-point FFT's stage radices; direct: ()
     zero_half: bool    # stockham: stage one is a radix 2 over a zero upper half
+    mirrored: bool     # direct: the table mirrors bin k onto W-k exactly
 
 
 def _radices(m: int) -> tuple:
@@ -88,10 +93,39 @@ def fft_plan(W: int) -> FftPlan:
     if W < 2:
         raise ValueError(f"frames of {W} samples have no bins 1..W-1")
     if W not in FFT_WINDOWS:
-        return FftPlan(W, "direct", (), False)
+        return FftPlan(W, "direct", (), False, _mirrored(_direct_twiddle(W)))
     if W % 2 == 0:
-        return FftPlan(W, "stockham", (2, *_radices(W // 2)), True)
-    return FftPlan(W, "stockham", _radices(W), False)
+        return FftPlan(W, "stockham", (2, *_radices(W // 2)), True, False)
+    return FftPlan(W, "stockham", _radices(W), False, False)
+
+
+def _direct_twiddle(W: int) -> np.ndarray:
+    """The direct sum's [2W, 2] float32 twiddles exp(-2 pi i m / 2W): bins
+    0..W of the DFT basis' n = 1 row and their mirror, as dft.dft_matrices
+    rounds them."""
+    cos_m, sin_m = dft.dft_matrices(W)
+    return np.stack([
+        np.concatenate([cos_m[1], cos_m[1, 1:W][::-1]]),
+        np.concatenate([sin_m[1], -sin_m[1, 1:W][::-1]]),
+    ], axis=-1)
+
+
+def _mirrored(tw: np.ndarray) -> bool:
+    """Whether, for every pair the kernel runs (k and W-k, k < W/2) and
+    every sample n < W, bin W-k's twiddle entry equals bin k's times
+    ((-1)^n, -(-1)^n), as float32 values. Then bin W-k's sum is bin k's
+    table read with its signs flipped, and its multiply-adds are the ones
+    that read its own entries. (A zero's sign differs at n = 0; it never
+    reaches a magnitude.) True at every prime W; false where a k*n lands
+    on an entry whose true value is 0 and the table holds a residue, as
+    sin(pi) at W = 105 or cos(pi/2) at W = 180."""
+    W = tw.shape[0] // 2
+    k = np.arange(1, (W - 1) // 2 + 1)[:, None]
+    n = np.arange(W)[None, :]
+    own, pair = tw[(k * n) % (2 * W)], tw[((W - k) * n) % (2 * W)]
+    sign = np.where(n % 2 == 0, 1.0, -1.0).astype(np.float32)
+    return bool(np.array_equal(pair[..., 0], sign * own[..., 0])
+                and np.array_equal(pair[..., 1], -sign * own[..., 1]))
 
 
 def radix_code(plan: FftPlan) -> int:
@@ -101,6 +135,13 @@ def radix_code(plan: FftPlan) -> int:
     for i, r in enumerate(plan.radices):
         code |= r << (4 * i)
     return code
+
+
+def kernel_code(plan: FftPlan) -> int:
+    """The plan as csrc/analysis.cu's entry point reads it: the FFT's
+    radix_code, or for the direct sum 1 where the table is mirrored and 0
+    where each bin of a pair reads its own entries (no radix code is 1)."""
+    return radix_code(plan) if plan.route == "stockham" else int(plan.mirrored)
 
 
 def _complex_f32(z: np.ndarray) -> np.ndarray:
@@ -113,11 +154,7 @@ def fft_tables(W: int) -> dict:
     "twiddle" [W] and "post" [W], or direct's "twiddle" [2W]."""
     plan = fft_plan(W)
     if plan.route == "direct":
-        cos_m, sin_m = dft.dft_matrices(W)
-        tables = {"twiddle": np.stack([
-            np.concatenate([cos_m[1], cos_m[1, 1:W][::-1]]),
-            np.concatenate([sin_m[1], -sin_m[1, 1:W][::-1]]),
-        ], axis=-1)}
+        tables = {"twiddle": _direct_twiddle(W)}
     else:
         m = np.arange(W)
         tables = {

@@ -82,6 +82,86 @@ def test_plan_picks_the_fft_exactly_for_the_compiled_windows(W_lo):
         analysis_fft.fft_plan(1)
 
 
+def _is_prime(n: int) -> bool:
+    return n > 1 and _largest_prime_factor(n) == n
+
+
+@pytest.mark.parametrize("W_lo", [2, 200, 400, 600, 800])
+def test_direct_plan_mirrors_exactly_at_every_prime(W_lo):
+    """The direct sum's pairing decision against the float32 table, read
+    one pair at a time: bin W-k's entry at sample n is bin k's times
+    ((-1)^n, -(-1)^n) at every n < W for every pair k < W/2. True at
+    every prime W (W = 661 among them), false at W = 105 and 180 (7 and
+    12 kHz), and passed to the kernel as code 1 or 0."""
+    for W in range(W_lo, W_lo + 200):
+        plan = analysis_fft.fft_plan(W)
+        if plan.route != "direct":
+            assert not plan.mirrored
+            continue
+        tw = analysis_fft.fft_tables(W)["twiddle"]
+        exact = True
+        for k in range(1, (W - 1) // 2 + 1):
+            n = np.arange(W)
+            own, pair = tw[k * n % (2 * W)], tw[(W - k) * n % (2 * W)]
+            odd = n % 2 == 1
+            want = np.stack([np.where(odd, -own[:, 0], own[:, 0]),
+                             np.where(odd, own[:, 1], -own[:, 1])], axis=-1)
+            if not np.array_equal(pair, want):
+                exact = False
+                break
+        assert plan.mirrored == exact, W
+        assert analysis_fft.kernel_code(plan) == int(exact)
+        if _is_prime(W):
+            assert plan.mirrored, W
+    for W in (105, 180):
+        assert analysis_fft.fft_plan(W).route == "direct"
+        assert not analysis_fft.fft_plan(W).mirrored
+    assert analysis_fft.fft_plan(661).mirrored
+    assert SpeedyConfig(44100).window_size == 661
+    assert [SpeedyConfig(sr).window_size for sr in (7000, 12000)] == [105, 180]
+
+
+def _sequential_sums(frames, tw, k, mirror):
+    """|X[k]| and |X[W-k]| of frames [F, W] as the direct body sums them,
+    one float32 product and sum a sample over n ascending, each bin from its
+    own table entries or, with mirror, bin W-k from bin k's with the signs
+    of n's parity."""
+    F, W = frames.shape
+    acc = np.zeros((4, F, len(k)), np.float32)
+    for n in range(W):
+        v = frames[:, n : n + 1]
+        c, s = tw[k * n % (2 * W)].T
+        if mirror:
+            c2, s2 = (-c, s) if n % 2 else (c, -s)
+        else:
+            c2, s2 = tw[(W - k) * n % (2 * W)].T
+        for j, t in enumerate((c, s, c2, s2)):
+            acc[j] += v * t
+    return np.sqrt(acc[0] ** 2 + acc[1] ** 2), np.sqrt(acc[2] ** 2 + acc[3] ** 2)
+
+
+@pytest.mark.parametrize("W", [661, 97, 2, 4])
+def test_mirrored_pairs_sum_bitwise_as_their_own_entries(W):
+    """Where the plan finds the table mirrored, bin W-k summed from bin
+    k's entries with flipped signs is bitwise the sum over its own entries,
+    and both bins of a pair agree with float64's rfft to float32's
+    accuracy."""
+    assert analysis_fft.fft_plan(W).mirrored
+    tw = analysis_fft.fft_tables(W)["twiddle"]
+    frames = _frames(W, 6, W) if W > 4 else np.random.default_rng(W).standard_normal(
+        (6, W)).astype(np.float32)
+    k = np.arange(1, W // 2 + 1)
+    own = _sequential_sums(frames, tw, k, mirror=False)
+    mirrored = _sequential_sums(frames, tw, k, mirror=True)
+    odd_pairs = k < W - k  # an even W's middle bin runs alone
+    np.testing.assert_array_equal(own[0], mirrored[0])
+    np.testing.assert_array_equal(own[1][:, odd_pairs], mirrored[1][:, odd_pairs])
+    ref = np.abs(np.fft.rfft(frames.astype(np.float64), n=2 * W))
+    scale = np.maximum(ref[:, 1:W].max(axis=1, keepdims=True), 1e-30)
+    assert np.all(np.abs(own[0] - ref[:, k]) <= 1e-5 * scale)
+    assert np.all(np.abs(own[1] - ref[:, W - k]) <= 1e-5 * scale)
+
+
 def test_compiled_windows_match_the_kernel_source():
     """csrc/analysis.cu's fft_kernel_for has a body for exactly the W of
     FFT_WINDOWS, the windows of the sample rates they stand for."""
