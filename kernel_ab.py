@@ -12,10 +12,15 @@ checkout's kernels and timing them with this checkout's clocks
     chip_smoke.front_end_phase: each against its plain version, with its
     gates, at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 (10 s
     utterances of the benchmark's four families), and kernel 2 also on
-    the 60 s single call's input; kernel 1 also at 7 and 12 kHz B=2 x 2 s
-    (chip_smoke.short_input), whose W run the direct sum, and a sha256 of
-    its energy and lsd bytes at 44.1 kHz B=32, 7 and 12 kHz
-    (analysis_digests);
+    the 60 s single call's input; kernel 1 also at 7, 12, 47.3 and 96 kHz
+    B=2 x 2 s (chip_smoke.short_input), whose W run the direct sum (47.3
+    and 96 kHz in several rounds of pairs), and a sha256 of its energy
+    and lsd bytes at 44.1 kHz B=32 and at each of those (analysis_digests);
+  - where the checkout's plan chooses how a pair of bins reads the
+    direct sum's twiddles, kernel 1's direct body at 44.1 kHz B=32 and
+    47.3 kHz B=2 in both forms, one twiddle load for both bins (the
+    plan's, code 1) and one for each (code 0), bitwise to each other
+    (direct_forms);
   - the launch path: kernel 13 (lane_roll, [64, 512] by 266) and kernel
     15 (transpose_cols, [512, 128], each form) timed as pairs with their
     library calls, kernel 3 at the batch step's shape (hop 160, B=128,
@@ -33,7 +38,8 @@ checkout's kernels and timing them with this checkout's clocks
     44.1 kHz (3.5x, capacity factor 1.33).
 Each process prints its rows as one JSON line; the last line is the
 summary: per kernel and shape, each checkout's median over its two
-processes of every time, and kernel 2's integer flips and share of cells
+processes of every time (this checkout's alone for synth_runs and
+direct_forms), and kernel 2's integer flips and share of cells
 more than 0.1 sample off the float64 search; per digest shape, whether
 all four processes gave the same bytes (bitwise_to_other). The card's
 name and power limit come first.
@@ -139,7 +145,8 @@ def launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev) -> dict:
 
 SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
 # Kernel 1's direct-sum rates beside the front-end shapes: label -> rate.
-SHORT_RATES = {"7kHz B=2": 7000, "12kHz B=2": 12000}
+SHORT_RATES = {"7kHz B=2": 7000, "12kHz B=2": 12000, "47.3kHz B=2": 47300,
+               "96kHz B=2": 96000}
 
 
 def short_cases(chip_smoke, inputs, dev) -> dict:
@@ -171,6 +178,54 @@ def analysis_digests(chip_smoke, kernels, batch, cases) -> dict:
         h.update(l.cpu().numpy().tobytes())
         out[label] = h.hexdigest()
     return out
+
+
+def direct_forms(chip_smoke, kernels, batch, _build, cases, dev) -> dict:
+    """Kernel 1's direct body on each of cases whose plan finds the table
+    mirrored, launched through its C entry point in both pairing forms:
+    code 1, one twiddle load a sample for bins k and W-k (the plan's), and
+    code 0, each bin its own; each output held bitwise to the wrapper's.
+    The device ms of each (the median of three profiler readings, the
+    forms in turns): label -> {"mirrored_ms", "own_entries_ms"}. Empty for
+    a checkout whose plan has no such choice."""
+    import numpy as np
+    import torch
+    from speedy_tpu_torch.ops import analysis_fft
+
+    if not hasattr(analysis_fft, "kernel_code"):
+        return {}
+    clock = this_timing()
+    fn = _build.load()["analysis_energy_lsd"]
+    rows = {}
+    for label, (cfg, x, gain) in cases.items():
+        T = cfg.num_frames(x.shape[1], integer_step=True)
+        args = chip_smoke.recorded_call(kernels, "analysis_energy_lsd",
+                                        lambda: batch.batched_analysis(x, cfg, T, gain))
+        xs, g, ham, _, _, table, T, step = args
+        (B, L), W = xs.shape, ham.shape[0]
+        plan = analysis_fft.fft_plan(W)
+        if plan.route != "direct" or not plan.mirrored:
+            continue
+        want = kernels.analysis_energy_lsd(*args)
+        e, l = torch.empty_like(want[0]), torch.empty_like(want[1])
+        ptrs = [t.data_ptr() for t in (xs, g, ham, table, e, l)]
+        eps = float(np.float32(kernels.C.EPS))
+        forms = {"mirrored_ms": 1, "own_entries_ms": 0}
+        calls = {}
+        for key, code in forms.items():
+            calls[key] = (lambda c: lambda: fn(*ptrs, B, L, T, W, step, c, eps,
+                                               torch._C._cuda_getCurrentRawStream(dev.index)))(code)
+            e.fill_(float("nan"))
+            l.fill_(float("nan"))
+            chip_smoke.check(calls[key]() == 0, "analysis_energy_lsd", label, key)
+            chip_smoke.check(torch.equal(e, want[0]) and torch.equal(l, want[1]),
+                             "analysis_energy_lsd", label, key, "differs from the wrapper's")
+        times = {key: [] for key in forms}
+        for turn in range(3):
+            for key in (forms if turn % 2 == 0 else list(forms)[::-1]):
+                times[key].append(clock.device_ms(calls[key], dev))
+        rows[label] = {key: median_of(v) for key, v in times.items()}
+    return rows
 
 
 def synth_cases(chip_smoke, wsola_fast, inputs, dev) -> dict:
@@ -324,6 +379,9 @@ def measure(root: str) -> dict:
     out["analysis_digests"] = analysis_digests(
         chip_smoke, kernels, batch, {"44.1kHz B=32": inputs["44.1kHz"], **short})
     out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
+    out["direct_forms"] = direct_forms(
+        chip_smoke, kernels, batch, _build,
+        {"44.1kHz B=32": inputs["44.1kHz"], "47.3kHz B=2": short["47.3kHz B=2"]}, dev)
     # The batch path against the plain path, each with its own tension and
     # pitch grid: the share of valid output samples off by more than 1e-3.
     out["own_grid_share"] = {}
@@ -372,11 +430,13 @@ def main() -> int:
                 "bitwise_to_other": len({r["analysis_digests"][label]
                                          for rs in runs.values() for r in rs}) == 1}
         for label in runs["this"][0]["analysis_digests"]}
-    summary["synth_runs"] = {
-        label: {k: median_of([r["synth_runs"][label][k] for r in runs["this"]]) for k in row}
-        for label, row in runs["this"][0]["synth_runs"].items()}
+    for part in ("synth_runs", "direct_forms"):
+        summary[part] = {
+            label: {k: median_of([r[part][label][k] for r in runs["this"]]) for k in row}
+            for label, row in runs["this"][0][part].items()}
     for name, by_shape in runs["this"][0].items():
-        if name in ("own_grid_share", "launch_parts_us", "synth_runs", "analysis_digests"):
+        if name in ("own_grid_share", "launch_parts_us", "synth_runs", "analysis_digests",
+                    "direct_forms"):
             continue
         for shape in by_shape:
             row = {}

@@ -32,6 +32,13 @@ PLANS = {
     22050: ("stockham", (2, 3, 5, 11)),
     44100: ("direct", ()),
     48000: ("stockham", (2, 8, 3, 3, 5)),
+    # The direct sum off the FFT rates: W = 105 and 180 (not mirrored),
+    # 709 (a prime, mirrored) and 1440, the last two in several rounds of
+    # pairs.
+    7000: ("direct", ()),
+    12000: ("direct", ()),
+    47300: ("direct", ()),
+    96000: ("direct", ()),
 }
 GAIN = np.array([1.0, 0.7, 1.4], np.float32)
 
@@ -119,47 +126,8 @@ def test_direct_plan_mirrors_exactly_at_every_prime(W_lo):
     assert analysis_fft.fft_plan(661).mirrored
     assert SpeedyConfig(44100).window_size == 661
     assert [SpeedyConfig(sr).window_size for sr in (7000, 12000)] == [105, 180]
-
-
-def _sequential_sums(frames, tw, k, mirror):
-    """|X[k]| and |X[W-k]| of frames [F, W] as the direct body sums them,
-    one float32 product and sum a sample over n ascending, each bin from its
-    own table entries or, with mirror, bin W-k from bin k's with the signs
-    of n's parity."""
-    F, W = frames.shape
-    acc = np.zeros((4, F, len(k)), np.float32)
-    for n in range(W):
-        v = frames[:, n : n + 1]
-        c, s = tw[k * n % (2 * W)].T
-        if mirror:
-            c2, s2 = (-c, s) if n % 2 else (c, -s)
-        else:
-            c2, s2 = tw[(W - k) * n % (2 * W)].T
-        for j, t in enumerate((c, s, c2, s2)):
-            acc[j] += v * t
-    return np.sqrt(acc[0] ** 2 + acc[1] ** 2), np.sqrt(acc[2] ** 2 + acc[3] ** 2)
-
-
-@pytest.mark.parametrize("W", [661, 97, 2, 4])
-def test_mirrored_pairs_sum_bitwise_as_their_own_entries(W):
-    """Where the plan finds the table mirrored, bin W-k summed from bin
-    k's entries with flipped signs is bitwise the sum over its own entries,
-    and both bins of a pair agree with float64's rfft to float32's
-    accuracy."""
-    assert analysis_fft.fft_plan(W).mirrored
-    tw = analysis_fft.fft_tables(W)["twiddle"]
-    frames = _frames(W, 6, W) if W > 4 else np.random.default_rng(W).standard_normal(
-        (6, W)).astype(np.float32)
-    k = np.arange(1, W // 2 + 1)
-    own = _sequential_sums(frames, tw, k, mirror=False)
-    mirrored = _sequential_sums(frames, tw, k, mirror=True)
-    odd_pairs = k < W - k  # an even W's middle bin runs alone
-    np.testing.assert_array_equal(own[0], mirrored[0])
-    np.testing.assert_array_equal(own[1][:, odd_pairs], mirrored[1][:, odd_pairs])
-    ref = np.abs(np.fft.rfft(frames.astype(np.float64), n=2 * W))
-    scale = np.maximum(ref[:, 1:W].max(axis=1, keepdims=True), 1e-30)
-    assert np.all(np.abs(own[0] - ref[:, k]) <= 1e-5 * scale)
-    assert np.all(np.abs(own[1] - ref[:, W - k]) <= 1e-5 * scale)
+    assert [SpeedyConfig(sr).window_size for sr in (47300, 96000)] == [709, 1440]
+    assert analysis_fft.fft_plan(709).mirrored and not analysis_fft.fft_plan(1440).mirrored
 
 
 def test_compiled_windows_match_the_kernel_source():
