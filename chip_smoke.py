@@ -1355,12 +1355,21 @@ def single_split_ms(x, cfg, rate, dev):
 # Float32 operations a frame of the law: the base law (3), the feedback
 # term (4), the two durations (3, one a division) and the interpolation (2).
 LAW_FLOP_PER_FRAME = 12
-# The frame-to-frame chain: cur - des, fb * it, the maximum, + base, a
-# division, cur + it. Counting the IEEE division as the 5 dependent steps
-# of its reciprocal-and-refine sequence, 10 dependent float32 operations
-# of 4 cycles each: an estimate from assumed latencies, not a measurement.
-LAW_CHAIN_CYCLES = 40
+# The frame-to-frame chain as the kernel runs it: cur + q, cur - des, fb *
+# it, the maximum, + base, the reciprocal (MUFU.RCP), the quotient from it,
+# its remainder and the corrected quotient (csrc/speed_law.cu's
+# law_divide, bitwise IEEE division for the law's numerator): 9 dependent
+# float32 operations and a reciprocal, 52 cycles a frame measured on an
+# H100 (law_variants.py: clock64 over 65,536 frames of the chain alone in
+# registers; 68 with __fdiv_rn). The least time of a frame, whatever holds
+# its operands.
+LAW_CHAIN_CYCLES = 52
 LAW_CASES = [(r, fb, nl) for r in (0.7, 1.0, 3.5) for fb in (0.0, 0.1) for nl in (0.5, 1.0)]
+# Batch sizes and lengths at the kernel's edges: warps of 8 walkers,
+# chunks of 16 frames read ahead, and the parent's blocks of 32 rows and
+# chunks of 64 frames.
+LAW_EDGE_B = (1, 7, 9, 31, 33, 128)
+LAW_EDGE_T = (1, 15, 16, 17, 63, 64, 65, 129, 1000)
 
 
 def hold_speed_law(kernels, label, tension, rate, fb, nl, durations=None) -> None:
@@ -1383,7 +1392,10 @@ def speed_law_phase(kernels, single_args, sweep_args, dev, sm_clock_mhz) -> dict
     """The speed-law kernel held bitwise to its plain loop on the card: on
     the 60 s single call's own tension and the 0.7x sweep's batch (the
     arguments those runs passed kernels.speed_law), on seeded tension
-    [128, 999] at LAW_CASES, and with carried-in durations. Times at the
+    [128, 999] at LAW_CASES, with carried-in durations, and at every B of
+    LAW_EDGE_B and T of LAW_EDGE_T with carried-in durations; the walk's
+    division against IEEE division at every denominator it is proved on
+    (kernels.speed_law_division_check, which must find none). Times at the
     single call's tension and at [128, 999], 3.5x: the kernel's CUDA-event
     ms (median of 10), its device ms (torch.profiler), the plain loop's ms
     (one call), the bound of bytes and operations and the chain-latency
@@ -1404,6 +1416,24 @@ def speed_law_phase(kernels, single_args, sweep_args, dev, sm_clock_mhz) -> dict
     for rate in (0.7, 3.5):
         hold_speed_law(kernels, f"[128, 999] {rate}x carried durations", seeded, rate, 0.1,
                        1.0, durations)
+    edge = torch.as_tensor((rng.standard_normal((max(LAW_EDGE_B), max(LAW_EDGE_T))) * 0.5)
+                           .astype(np.float32), device=dev)
+    for B in LAW_EDGE_B:
+        for T in LAW_EDGE_T:
+            carried = tuple(d[:B].contiguous() for d in durations)
+            hold_speed_law(kernels, f"[{B}, {T}] 3.5x carried durations",
+                           edge[:B, :T].contiguous(), 3.5, 0.1, 1.0, carried)
+    # Tension of -1e38 at 3.5x makes a base speed past 2^126, where the
+    # walk's division is not proved: the kernel walks that row again with
+    # IEEE division.
+    huge = edge[:3, :100].clone()
+    huge[1, 50] = -1e38
+    hold_speed_law(kernels, "[3, 100] 3.5x, a denominator past 2^126", huge, 3.5, 0.1, 1.0)
+    mismatches = kernels.speed_law_division_check(dev)
+    lo, hi = kernels.DIVISION_CHECK_RANGE
+    check(mismatches == 0, "the walk's division differs from IEEE division at", mismatches,
+          "of", hi - lo, "denominators")
+    emit("speed_law_division", denominators=hi - lo, mismatches=mismatches)
     rows = {}
     for label, (tension, rate, fb, nl, init) in (
         ("60 s single call", single_args),
@@ -1418,13 +1448,14 @@ def speed_law_phase(kernels, single_args, sweep_args, dev, sm_clock_mhz) -> dict
         nbytes = 4 * (2 * B * T + 4 * B)
         bound_ms, bound_by = bound(nbytes, LAW_FLOP_PER_FRAME * B * T)
         chain_ms = T * LAW_CHAIN_CYCLES / (sm_clock_mhz * 1e3)
-        rows[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=None)
+        rows[label] = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         emit("speed_law", case=label, B=B, T=T, rate=rate, ms=ms, device_ms=device_ms,
              device_ns_per_frame=None if device_ms is None else device_ms * 1e6 / T,
              plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
              chain_latency_bound_ms=chain_ms, sm_clock_max_mhz=sm_clock_mhz)
-    emit("speed_law_bitwise", cases=2 + len(LAW_CASES) + 2, exact=True,
+    emit("speed_law_bitwise",
+         cases=2 + len(LAW_CASES) + 2 + len(LAW_EDGE_B) * len(LAW_EDGE_T) + 1, exact=True,
          seconds=time.perf_counter() - t0)
     return rows["60 s single call"]
 
@@ -1777,12 +1808,12 @@ def main() -> int:
     # Kernels 1 and 2 add their device ms at each shape, and kernel 1 the
     # body it ran at each rate (their direct-sum floors are on the phase's
     # kernel lines).
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = {
-        "analysis_energy_lsd": ("device_ms", "library_transform_ms", "library_transform",
-                                "bodies", "shapes"),
-        "pitch_ssd": ("device_ms", "shapes"),
-        "gather_synth": ("device_ms", "bound_share", "shapes"),
+        "analysis_energy_lsd": ("library_transform_ms", "library_transform", "bodies",
+                                "shapes"),
+        "pitch_ssd": ("shapes",),
+        "gather_synth": ("bound_share", "shapes"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

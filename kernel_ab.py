@@ -26,10 +26,15 @@ checkout's kernels and timing them with this checkout's clocks
     library calls, kernel 3 at the batch step's shape (hop 160, B=128,
     K=383), at hops 220 (B=8), 441 (B=4), 80, 110 and 480 (B=8) and on
     one 60 s row (synth_cases), kernel 4 at the single call's shape (B=1,
-    60 s) and the speed law on the 60 s call's tension; for each,
-    CUDA-event ms, the host's cost of one launch (launch_us: 200 calls
-    back to back) and device ms (torch.profiler), and the parts of one
-    launch in microseconds (launch_parts);
+    60 s) and the speed law on the 60 s call's tension and on seeded
+    [128, 999] tension at 3.5x, fb 0.1 and fb 0.0; for each, CUDA-event
+    ms, the host's cost of one launch (launch_us: 200 calls back to back)
+    and device ms (torch.profiler), and the parts of one launch in
+    microseconds (launch_parts); a sha256 of the speed law's speeds and
+    durations at its three shapes (law_digests);
+  - kernel 11 (synth_bisect) at every stage of its probe's cases (the
+    6.0x span, then full at 4.0x) on the probe's inputs: CUDA-event and
+    device ms, and a sha256 of each output (synth_bisect_digests);
   - where the checkout has ops/synth_model.py (kernel 3 in runs of S
     slots a block), kernel 3's device ms at S = 1 .. 16 beside the plan's
     S, at the same shapes (synth_runs);
@@ -40,9 +45,10 @@ Each process prints its rows as one JSON line; the last line is the
 summary: per kernel and shape, each checkout's median over its two
 processes of every time (this checkout's alone for synth_runs and
 direct_forms), and kernel 2's integer flips and share of cells
-more than 0.1 sample off the float64 search; per digest shape, whether
-all four processes gave the same bytes (bitwise_to_other). The card's
-name and power limit come first.
+more than 0.1 sample off the float64 search; per digest shape (kernel
+1's, kernel 11's and the speed law's), whether all four processes gave
+the same bytes (bitwise_to_other). The card's name and power limit come
+first.
 
     python3 kernel_ab.py --measure ROOT
 
@@ -63,6 +69,8 @@ KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "integer_flips",
         "kernel_share_off_f64_0p1", "library_transform_ms", "launch_us", "library_ms",
         "library_launch_us")
 TIMES = ("ms", "device_ms", "launch_us", "library_ms", "library_launch_us")
+# The rows that hold a sha256 per shape, compared across the four processes.
+DIGESTS = ("analysis_digests", "synth_bisect_digests", "law_digests")
 
 
 def median_of(values):
@@ -129,18 +137,84 @@ def launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev) -> dict:
     cfg16 = inputs["16kHz"][0]
     single = lambda: pipeline.nonlinear_speedup(x60, cfg16, 3.5, 1.0, 0.1, engine="grid",
                                                 device=dev)
-    for name, shape, plain in (("gather_rows", "path: 16kHz B=1 60s 3.5x",
-                                kernels.gather_rows_reference),
-                               ("speed_law", "the 60s call's tension",
-                                kernels.speed_law_reference)):
-        rec = chip_smoke.recorded_call(kernels, name, single)
-        fn = getattr(kernels, name)
-        out, want = fn(*rec), plain(*rec)
-        if name == "speed_law":  # (speeds, durations): the speeds
-            out, want = out[0], want[0]
-        chip_smoke.check(torch.equal(out, want), name, "differs from its plain version")
-        rows[name] = {shape: row(lambda: fn(*rec))}
+    rec = chip_smoke.recorded_call(kernels, "gather_rows", single)
+    chip_smoke.check(torch.equal(kernels.gather_rows(*rec), kernels.gather_rows_reference(*rec)),
+                     "gather_rows differs from its plain version")
+    rows["gather_rows"] = {"path: 16kHz B=1 60s 3.5x": row(lambda: kernels.gather_rows(*rec))}
+    rows["speed_law"] = {}
+    for shape, args in law_cases(chip_smoke, kernels, single, dev).items():
+        got, want = kernels.speed_law(*args), kernels.speed_law_reference(*args)
+        chip_smoke.check(all(torch.equal(g, w) for g, w in zip((got[0], *got[1]),
+                                                               (want[0], *want[1]))),
+                         "speed_law", shape, "differs from its plain loop")
+        rows["speed_law"][shape] = row(lambda: kernels.speed_law(*args))
     return rows
+
+
+def law_cases(chip_smoke, kernels, single, dev) -> dict:
+    """The speed law's arguments: the 60 s single call's (recorded), and
+    chip_smoke.py's seeded [128, 999] tension at 3.5x, fb 0.1 and fb 0.0
+    (nonlinear factor 1): shape label -> args."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    seeded = torch.as_tensor((rng.standard_normal((128, 999)) * 0.5).astype(np.float32),
+                             device=dev)
+    return {"the 60s call's tension": chip_smoke.recorded_call(kernels, "speed_law", single),
+            "[128, 999] 3.5x fb 0.1": (seeded, 3.5, 0.1, 1.0, None),
+            "[128, 999] 3.5x fb 0.0": (seeded, 3.5, 0.0, 1.0, None)}
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, one after another."""
+    import hashlib
+
+    import torch
+
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def law_digests(chip_smoke, kernels, pipeline, inputs, x60, dev) -> dict:
+    """sha256 of the speed law's speeds and final durations at each of
+    law_cases: shape label -> hex digest."""
+    single = lambda: pipeline.nonlinear_speedup(x60, inputs["16kHz"][0], 3.5, 1.0, 0.1,
+                                                engine="grid", device=dev)
+    out = {}
+    for shape, args in law_cases(chip_smoke, kernels, single, dev).items():
+        speeds, (cur, des) = kernels.speed_law(*args)
+        out[shape] = digest(speeds, cur, des)
+    return out
+
+
+def synth_bisect_rows(kernels, dev) -> tuple:
+    """Kernel 11 at every stage of the probe's cases (the 6.0x span, then
+    full at 4.0x) on the probe's inputs: ({case: {ms, launch_us,
+    device_ms}}, {case: sha256 of the output}), timed by this checkout's
+    clocks."""
+    import numpy as np
+    import torch
+    from speedy_tpu_torch.experiments import synth_bisect as probe
+
+    clock = this_timing()
+    p = probe.plan()
+    rng = np.random.default_rng(0)
+    af = torch.as_tensor(rng.uniform(0, 1, (probe.BATCH, p["K"])).astype(np.float32),
+                         device=dev)
+    x = probe.signal(rng, p, dev)
+    starts, n_valid = probe.starts_n_valid(p, dev)
+    rows, digests = {}, {}
+    for stage, speed in probe.CASES:
+        kw = dict(hop=p["hop"], rows_per_block=probe.R, w_span=probe.span_plan(p, speed))
+        call = lambda: kernels.synth_bisect(x, starts, af, n_valid, stage, **kw)
+        label = f"{stage} {speed}x"
+        digests[label] = digest(call())
+        rows[label] = {"ms": clock.time_ms(call, dev), "device_ms": clock.device_ms(call, dev)}
+    return rows, digests
 
 
 SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -376,6 +450,8 @@ def measure(root: str) -> dict:
     out = {name: {shape: {k: r[k] for k in KEYS if k in r} for shape, r in by_shape.items()}
            for name, by_shape in rows.items()}
     out["launch_parts_us"] = launch_parts(kernels, _build, dev)
+    out["synth_bisect"], out["synth_bisect_digests"] = synth_bisect_rows(kernels, dev)
+    out["law_digests"] = law_digests(chip_smoke, kernels, pipeline, inputs, x60, dev)
     out["analysis_digests"] = analysis_digests(
         chip_smoke, kernels, batch, {"44.1kHz B=32": inputs["44.1kHz"], **short})
     out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
@@ -425,18 +501,19 @@ def main() -> int:
                    who: {k: statistics.median(r["launch_parts_us"][k] for r in rs)
                          for k in rs[0]["launch_parts_us"]}
                    for who, rs in runs.items()}}
-    summary["analysis_digests"] = {
-        label: {"this": runs["this"][0]["analysis_digests"][label],
-                "bitwise_to_other": len({r["analysis_digests"][label]
-                                         for rs in runs.values() for r in rs}) == 1}
-        for label in runs["this"][0]["analysis_digests"]}
+    for part in DIGESTS:
+        summary[part] = {
+            label: {"this": runs["this"][0][part][label],
+                    "bitwise_to_other": len({r[part].get(label) for rs in runs.values()
+                                             for r in rs}) == 1}
+            for label in runs["this"][0][part]}
     for part in ("synth_runs", "direct_forms"):
         summary[part] = {
             label: {k: median_of([r[part][label][k] for r in runs["this"]]) for k in row}
             for label, row in runs["this"][0][part].items()}
     for name, by_shape in runs["this"][0].items():
-        if name in ("own_grid_share", "launch_parts_us", "synth_runs", "analysis_digests",
-                    "direct_forms"):
+        if name in ("own_grid_share", "launch_parts_us", "synth_runs", "direct_forms",
+                    *DIGESTS):
             continue
         for shape in by_shape:
             row = {}

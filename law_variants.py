@@ -1,33 +1,44 @@
 #!/usr/bin/env python3
 """What sets the speed-law kernel's pace on one card, and candidate bodies.
 
-    python3 law_variants.py        (from the repository root; one card)
+    python3 law_variants.py [PHASE ...]   (from the repository root; one card)
 
-Builds speedy_tpu_torch/csrc/speed_law.cu's kernel as the repository builds
-it and a library of variants (VARIANTS below, built by nvcc into
-speedy_tpu_torch/_build/law_variants/), then measures:
-  - sass: cuobjdump -sass of both libraries' speed-law kernels, written to
-    chiprun_out/law_variants/ with ptxas' register counts;
-  - latency: cycles (clock64) of one thread's dependent chain of each
-    float32 operation on the law's chain (FADD, FMUL, FFMA, FMNMX, the
-    reciprocal MUFU.RCP, the IEEE division __fdiv_rn and four shorter
-    correctly rounded candidates), each chained with an FADD, and of the
-    law's whole frame-to-frame chain with each division;
-  - division: each candidate against __fdiv_rn, bitwise, for the law's
-    numerator (float32(1/100)) and every float32 denominator in [0.01,
+Builds speedy_tpu_torch/csrc/speed_law.cu as the repository builds it, a
+library of variants (CUDA below, built by nvcc into
+speedy_tpu_torch/_build/law_variants/) and, for the edits phase, copies of
+speed_law.cu with one edit each (EDITS). The phases (all by default):
+  - sass: cuobjdump -sass of the speed-law kernels of both libraries, into
+    chiprun_out/law_variants/ (ptxas' registers in build.log there);
+  - latency: clock64 cycles of one thread's dependent chain of each float32
+    operation on the law's chain (FADD, FMUL, FFMA, FMNMX, the reciprocal
+    MUFU.RCP, the IEEE division __fdiv_rn and four shorter division
+    sequences, A, B, E and C, the last the kernel's law_divide), each
+    chained with an FADD; and of the law's whole frame-to-frame chain, in
+    registers, with each division;
+  - division: each sequence against __fdiv_rn, bitwise, for the law's
+    numerator float32(1/100) and every float32 denominator in [0.01,
     2^126): mismatches and the first and last;
-  - bodies: on the 60 s single call's tension (B=1, T=5,991, 3.5x, fb 0.1),
-    on seeded [128, 999] tension at 3.5x fb 0.1, 3.5x fb 0.0 and 0.7x fb
-    0.1, the repository's kernel, a copy of it that counts its walker's
-    cycles (current), the same walker over rows already in shared memory
-    (smem_body: no chunk barrier, no copy warp), and the candidate design
-    (walkers alone, a warp a block, each row prefetched to L2 and read a
-    chunk ahead into registers, speeds stored by the walker) with each
-    division: device ms (torch.profiler), walker cycles a frame, and
-    whether speeds and durations equal the repository kernel's bitwise;
-  - the share of frames whose feedback term is clamped (fb * excess <=
-    min_speed) on the 60 s call.
-One JSON line each; the card's name and power limit first.
+  - bodies:NAME, each in a process of its own: a copy of the parent
+    kernel (544a740: a warp of 32 walkers and a copy warp meeting at a
+    block barrier every 64 frames) that counts its walker's cycles
+    (current); its walker over rows already in shared memory, no barrier
+    (smem_body); and walkers alone, 32 a warp, tension read a chunk of 64
+    ahead into registers, with each division (candidate0 .. candidate4);
+    on the 60 s single call's tension (B=1, T=5,991), seeded [128, 999]
+    and [1, 999] tension at 3.5x fb 0.1;
+  - shapes: walkers alone with law_divide (tuned) at chunks of 8, 16, 32
+    and 64 frames and 32, 8 or 1 walkers a warp, with and without their
+    stores; and with the next chunk's loads and bases made inside the walk
+    or the speeds stored after it (tuned2, 8 a warp); on the 60 s call's
+    tension and seeded [128, 999] at 3.5x fb 0.1, 3.5x fb 0.0 and 0.7x fb
+    0.1, beside the repository's kernel;
+  - edits: the repository's kernel beside each of EDITS, in turns;
+  - clamp: the share of the 60 s call's frames whose feedback term is
+    clamped (fb * excess <= kMinimumSpeed).
+Each body reports device ms (torch.profiler), its walker's cycles a frame
+(clock64) and whether speeds and durations equal the repository kernel's
+bitwise. One JSON line each; the card's name, power limit and maximum SM
+clock first.
 """
 
 from __future__ import annotations
@@ -263,7 +274,7 @@ smem_body_kernel(const float* __restrict__ tension, const float* __restrict__ cu
   const int lane = threadIdx.x;
   const int b0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - b0);
-  const int pitch = T + 1;
+  const int pitch = (T + kChunk - 1) / kChunk * kChunk + 1;  // whole chunks: the last one reads past T
   for (int r = 0; r < nrows; ++r)
     for (int t = lane; t < T; t += 32) rows[r * pitch + t] = tension[(long long)(b0 + r) * T + t];
   __syncthreads();
@@ -351,6 +362,153 @@ candidate_kernel(const float* __restrict__ tension, const float* __restrict__ cu
   des_out[b] = des;
 }
 
+// ---- tuned: the repository's walk with kChunk frames read ahead and
+// `per` walkers a warp (lanes 0 .. per-1); kStore 0 keeps the speeds in
+// registers (their sum goes to cur_out: wrong speeds, for timing) ----
+__device__ __forceinline__ float short_divide(float fd, float b) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(b));
+  const float q = __fmul_rn(fd, y);
+  const float r = __fmaf_rn(-b, q, fd);
+  return __fmaf_rn(r, y, q);
+}
+
+template <bool kFast, bool kFeedback, int kChunk, bool kStore>
+__global__ void __launch_bounds__(32)
+tuned_kernel(const float* __restrict__ tension, const float* __restrict__ cur0,
+             const float* __restrict__ des0, float* __restrict__ speeds,
+             float* __restrict__ cur_out, float* __restrict__ des_out, int B, int T, Law law,
+             int per, long long* cycles) {
+  if ((int)threadIdx.x >= per) return;
+  const int b = blockIdx.x * per + threadIdx.x;
+  if (b >= B) return;
+  const float* row = tension + (long long)b * T;
+  float* out = speeds + (long long)b * T;
+  for (int t = 0; t < T; t += 32) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + t));
+  float cur = cur0 != nullptr ? cur0[b] : 0.f;
+  float des = des0 != nullptr ? des0[b] : 0.f;
+  const float one_minus_rg = __fsub_rn(1.f, law.rg);
+  const float des_step = __fdiv_rn(law.frame_duration, law.rg);
+  const float rg_rest = __fmul_rn(law.rg, __fsub_rn(1.f, law.nl));
+  float sum = 0.f;
+  float next[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) next[j] = j < T ? __ldg(row + j) : 0.f;
+  const long long t0 = clock64();
+  for (int c0 = 0; c0 < T; c0 += kChunk) {
+    float base[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) base[j] = base_speed(kFast, law, one_minus_rg, next[j]);
+    const int c1 = c0 + kChunk;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) next[j] = c1 + j < T ? __ldg(row + c1 + j) : 0.f;
+    const int n = min(kChunk, T - c0);
+    if (n == kChunk) {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float req = kFeedback ? __fadd_rn(base[j], fmaxf(law.min_speed,
+                                                __fmul_rn(law.fb, __fsub_rn(cur, des))))
+                                    : base[j];
+        cur = __fadd_rn(cur, short_divide(law.frame_duration, req));
+        des = __fadd_rn(des, des_step);
+        const float v = __fadd_rn(__fmul_rn(req, law.nl), rg_rest);
+        if (kStore) out[c0 + j] = v; else sum += v;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (j < n) {
+          const float req = kFeedback ? __fadd_rn(base[j], fmaxf(law.min_speed,
+                                                  __fmul_rn(law.fb, __fsub_rn(cur, des))))
+                                      : base[j];
+          cur = __fadd_rn(cur, short_divide(law.frame_duration, req));
+          des = __fadd_rn(des, des_step);
+          const float v = __fadd_rn(__fmul_rn(req, law.nl), rg_rest);
+          if (kStore) out[c0 + j] = v; else sum += v;
+        }
+      }
+    }
+  }
+  if (b == 0) cycles[0] = clock64() - t0;
+  cur_out[b] = kStore ? cur : sum;
+  des_out[b] = des;
+}
+
+// ---- tuned2: tuned with chunk c+1's loads and bases made inside chunk c's
+// walk (kInterleave) and the speeds stored after the walk (kBatchStore) ----
+template <bool kFast, bool kFeedback, int kChunk, bool kInterleave, bool kBatchStore>
+__global__ void __launch_bounds__(32)
+tuned2_kernel(const float* __restrict__ tension, const float* __restrict__ cur0,
+              const float* __restrict__ des0, float* __restrict__ speeds,
+              float* __restrict__ cur_out, float* __restrict__ des_out, int B, int T, Law law,
+              int per, long long* cycles) {
+  if ((int)threadIdx.x >= per) return;
+  const int b = blockIdx.x * per + threadIdx.x;
+  if (b >= B) return;
+  const float* row = tension + (long long)b * T;
+  float* out = speeds + (long long)b * T;
+  for (int t = 0; t < T; t += 32) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + t));
+  float cur = cur0 != nullptr ? cur0[b] : 0.f;
+  float des = des0 != nullptr ? des0[b] : 0.f;
+  const float one_minus_rg = __fsub_rn(1.f, law.rg);
+  const float des_step = __fdiv_rn(law.frame_duration, law.rg);
+  const float rg_rest = __fmul_rn(law.rg, __fsub_rn(1.f, law.nl));
+  float base[kChunk], next[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    base[j] = base_speed(kFast, law, one_minus_rg, j < T ? __ldg(row + j) : 0.f);
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) next[j] = kChunk + j < T ? __ldg(row + kChunk + j) : 0.f;
+  const long long t0 = clock64();
+  for (int c0 = 0; c0 < T; c0 += kChunk) {
+    const float* ahead = row + c0 + 2 * kChunk;
+    const int left = T - (c0 + 2 * kChunk);
+    const int n = min(kChunk, T - c0);
+    if (n == kChunk) {
+      float spd[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float req = kFeedback ? __fadd_rn(base[j], fmaxf(law.min_speed,
+                                                __fmul_rn(law.fb, __fsub_rn(cur, des))))
+                                    : base[j];
+        cur = __fadd_rn(cur, short_divide(law.frame_duration, req));
+        des = __fadd_rn(des, des_step);
+        const float v = __fadd_rn(__fmul_rn(req, law.nl), rg_rest);
+        if (kBatchStore) spd[j] = v; else out[c0 + j] = v;
+        if (kInterleave) {
+          base[j] = base_speed(kFast, law, one_minus_rg, next[j]);
+          next[j] = j < left ? __ldg(ahead + j) : 0.f;
+        }
+      }
+      if (kBatchStore) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) out[c0 + j] = spd[j];
+      }
+      if (!kInterleave) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) base[j] = base_speed(kFast, law, one_minus_rg, next[j]);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) next[j] = j < left ? __ldg(ahead + j) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (j < n) {
+          const float req = kFeedback ? __fadd_rn(base[j], fmaxf(law.min_speed,
+                                                  __fmul_rn(law.fb, __fsub_rn(cur, des))))
+                                      : base[j];
+          cur = __fadd_rn(cur, short_divide(law.frame_duration, req));
+          des = __fadd_rn(des, des_step);
+          out[c0 + j] = __fadd_rn(__fmul_rn(req, law.nl), rg_rest);
+        }
+      }
+    }
+  }
+  if (b == 0) cycles[0] = clock64() - t0;
+  cur_out[b] = cur;
+  des_out[b] = des;
+}
+
 }  // namespace
 
 #define LAW_ARGS const float *tension, const float *cur0, const float *des0, float *speeds, \
@@ -376,7 +534,8 @@ extern "C" int law_current(LAW_ARGS) {
 extern "C" int law_smem_body(LAW_ARGS) {
   const Law law{rg, fb, nl, min_speed, frame_duration};
   const int grid = (B + kRows - 1) / kRows, threads = kRows;
-  const size_t smem = (size_t)(B < kRows ? B : kRows) * (T + 1) * sizeof(float);
+  const size_t smem = (size_t)(B < kRows ? B : kRows) * ((T + kChunk - 1) / kChunk * kChunk + 1) *
+                      sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto kernel = LAW_PICK(smem_body_kernel);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -401,6 +560,49 @@ CANDIDATE(1)
 CANDIDATE(2)
 CANDIDATE(3)
 CANDIDATE(4)
+
+#define TUNED(C, S)                                                                \
+  extern "C" int law_tuned_##C##_##S(LAW_ARGS_PER) {                               \
+    const Law law{rg, fb, nl, min_speed, frame_duration};                          \
+    const int grid = (B + per - 1) / per;                                          \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                            \
+    const auto kernel = fast ? (feedback ? tuned_kernel<true, true, C, S>          \
+                                         : tuned_kernel<true, false, C, S>)        \
+                             : (feedback ? tuned_kernel<false, true, C, S>         \
+                                         : tuned_kernel<false, false, C, S>);      \
+    kernel<<<grid, 32, 0, s>>>(tension, cur0, des0, speeds, cur_out, des_out, B, T, \
+                               law, per, cycles);                                  \
+    return cudaGetLastError();                                                     \
+  }
+#define LAW_ARGS_PER const float *tension, const float *cur0, const float *des0, float *speeds, \
+    float *cur_out, float *des_out, int B, int T, float rg, float fb, float nl, float min_speed, \
+    float frame_duration, int fast, int feedback, int per, long long *cycles, void *stream
+TUNED(8, true)
+TUNED(16, true)
+TUNED(32, true)
+TUNED(64, true)
+TUNED(16, false)
+TUNED(64, false)
+
+#define TUNED2(C, I, S)                                                            \
+  extern "C" int law_tuned2_##C##_##I##_##S(LAW_ARGS_PER) {                        \
+    const Law law{rg, fb, nl, min_speed, frame_duration};                          \
+    const int grid = (B + per - 1) / per;                                          \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                            \
+    const auto kernel = fast ? (feedback ? tuned2_kernel<true, true, C, I, S>      \
+                                         : tuned2_kernel<true, false, C, I, S>)    \
+                             : (feedback ? tuned2_kernel<false, true, C, I, S>     \
+                                         : tuned2_kernel<false, false, C, I, S>);  \
+    kernel<<<grid, 32, 0, s>>>(tension, cur0, des0, speeds, cur_out, des_out, B, T, \
+                               law, per, cycles);                                  \
+    return cudaGetLastError();                                                     \
+  }
+TUNED2(16, false, false)
+TUNED2(16, true, false)
+TUNED2(16, false, true)
+TUNED2(16, true, true)
+TUNED2(32, true, true)
+TUNED2(32, true, false)
 
 template <int kOp>
 static int run_latency(float x, float c, float d, int n, float* sink, long long* cycles) {
@@ -467,6 +669,12 @@ DIVISIONS = {0: "fdiv_rn", 1: "A_fast_path", 2: "B_depth3", 3: "E_depth4", 4: "C
 LATENCY_OPS = {0: "fadd", 1: "fmul", 2: "ffma", 3: "fmnmx+fadd", 4: "mufu_rcp+fadd",
                5: "fdiv_rn+fadd", 6: "A+fadd", 7: "B+fadd", 8: "E+fadd", 9: "C+fadd"}
 BODIES = ("current", "smem_body", *(f"candidate{d}" for d in DIVISIONS))
+# The tuned walk's (chunk, stores) instances.
+TUNED = ((8, True), (16, True), (32, True), (64, True), (16, False), (64, False))
+# tuned2's (chunk, interleave, batch store) instances.
+TUNED2 = ((16, False, False), (16, True, False), (16, False, True), (16, True, True),
+          (32, True, True), (32, True, False))
+PHASES = ("sass", "latency", "division", *(f"bodies:{b}" for b in BODIES), "shapes", "edits", "clamp")
 
 
 def emit(**row):
@@ -477,8 +685,10 @@ def build(_build) -> ctypes.CDLL:
     out = _build.BUILD_DIR / "law_variants"
     out.mkdir(parents=True, exist_ok=True)
     src = out / "law_variants.cu"
-    src.write_text(CUDA)
     lib = out / "liblaw_variants.so"
+    if lib.exists() and src.read_text() == CUDA:  # built by an earlier process
+        return ctypes.CDLL(str(lib))
+    src.write_text(CUDA)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
                            str(_build.CSRC), "-o", str(lib), str(src)], capture_output=True, text=True)
     (OUT / "build.log").write_text(proc.stdout + proc.stderr)
@@ -498,21 +708,178 @@ def sass(_build, lib_paths) -> None:
             if "Function :" in line:
                 on = any(k in line for k in ("speed_law", "candidate", "chain_kernel",
                                              "latency_kernel", "current_kernel",
-                                             "smem_body"))
+                                             "smem_body", "tuned"))  # tuned2 too
             if on:
                 keep.append(line)
         (OUT / f"sass_{name}.txt").write_text("\n".join(keep))
         emit(phase="sass", library=name, lines=len(keep), returncode=proc.returncode)
 
 
-def main() -> int:
+# Variants of the repository's speed_law.cu, each one edit of its text:
+# name -> [(text, replacement)], each text found once.
+EDITS = {
+    "no_rewalk": [("  if (kShort && !(top < kHalfMaxDenominator && feedback < kHalfMaxDenominator)) {",
+                   "  if (false) {")],
+    "no_bound": [("    if (kShort) {  // a tree of maxima, off the walk", "    if (false) {")],
+    "neither": [("  if (kShort && !(top < kHalfMaxDenominator && feedback < kHalfMaxDenominator)) {",
+                 "  if (false) {"),
+                ("    if (kShort) {  // a tree of maxima, off the walk", "    if (false) {")],
+    "rewalk_inline": [("__device__ __noinline__ float2 rewalk(",
+                       "__device__ __forceinline__ float2 rewalk(")],
+    "flat_max": [("    if (kShort) {  // a tree of maxima, off the walk",
+                  "    if (kShort) {\n#pragma unroll\n      for (int j = 0; j < kChunk; ++j) "
+                  "top = fmaxf(top, base[j]);\n    }\n    if (false) {")],
+}
+
+
+def edited(_build) -> dict:
+    """Each of EDITS built from speed_law.cu into a library of its own (in
+    parallel): name -> its ctypes speedy_speed_law."""
+    out = _build.BUILD_DIR / "law_variants" / "edits"
+    out.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / "speed_law.cu").read_text()
+    procs = {}
+    for name, edits in EDITS.items():
+        src = text
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise SystemExit(f"law_variants: {name}: its text is not in speed_law.cu once")
+            src = src.replace(old, new)
+        (out / f"{name}.cu").write_text(src)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC), "-o",
+             str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"law_variants: nvcc failed for {name}\n{log}")
+        fn = ctypes.CDLL(str(out / f"lib{name}.so")).speedy_speed_law
+        fn.argtypes = _build._SIGNATURES["speedy_speed_law"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def edits_phase(_build, kernels, timing, t60, seeded, dev) -> None:
+    """The repository's kernel beside each of EDITS, in turns (kernel,
+    edits, edits reversed, kernel; the median device ms of each), bitwise
+    to it."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    fns = {"kernel": _build.load()["speed_law"], **edited(_build)}
+    f32 = lambda v: float(np.float32(v))
+    cases = {"60 s call 3.5x fb 0.1": (t60, 3.5, 0.1, 1.0),
+             "[128, 999] 3.5x fb 0.1": (seeded, 3.5, 0.1, 1.0),
+             "[128, 999] 3.5x fb 0.0": (seeded, 3.5, 0.0, 1.0)}
+    for label, (ten, rate, fb, nl) in cases.items():
+        B, T = ten.shape
+        want = kernels.speed_law(ten, rate, fb, nl)
+        calls, row = {}, {}
+        for name, fn in fns.items():
+            speeds, cur, des = torch.empty_like(ten), torch.empty(B, device=dev), torch.empty(B, device=dev)
+            args = (ten.data_ptr(), None, None, speeds.data_ptr(), cur.data_ptr(),
+                    des.data_ptr(), B, T, f32(rate), f32(fb), f32(nl), f32(0.01), f32(0.01),
+                    int(rate > 1.0), int(fb > 0.0))
+            calls[name] = (lambda fn, args: lambda: fn(*args, torch._C._cuda_getCurrentRawStream(0)))(fn, args)
+            assert calls[name]() == 0
+            torch.cuda.synchronize()
+            row[name] = {"bitwise": torch.equal(speeds, want[0]) and torch.equal(cur, want[1][0])
+                         and torch.equal(des, want[1][1])}
+        times = {name: [] for name in fns}
+        order = list(fns)
+        for turn in (order, order[::-1], order, order[::-1]):
+            for name in turn:
+                times[name].append(timing.device_ms(calls[name], dev))
+        for name in fns:
+            row[name]["device_ms"] = statistics.median(times[name])
+        emit(phase="edits", case=label, B=B, T=T, **row)
+
+
+def shapes(lib, kernels, timing, t60, seeded, dev) -> None:
+    """The tuned walk at each chunk and walkers a warp, beside the
+    repository's kernel: device ms, walker cycles a frame, bitwise."""
+    import numpy as np
+    import torch
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    cyc = torch.zeros(4, dtype=torch.int64, device=dev)
+    f32 = lambda v: float(np.float32(v))
+    cases = {"60 s call 3.5x fb 0.1": (t60, 3.5, 0.1, 1.0),
+             "[128, 999] 3.5x fb 0.1": (seeded, 3.5, 0.1, 1.0),
+             "[128, 999] 3.5x fb 0.0": (seeded, 3.5, 0.0, 1.0),
+             "[128, 999] 0.7x fb 0.1": (seeded, 0.7, 0.1, 1.0)}
+    for label, (ten, rate, fb, nl) in cases.items():
+        B, T = ten.shape
+        want = kernels.speed_law(ten, rate, fb, nl)
+        row = {"kernel_device_ms": timing.device_ms(lambda: kernels.speed_law(ten, rate, fb, nl),
+                                                    dev)}
+        for chunk, inter, batch in TUNED2:
+            f = getattr(lib, f"law_tuned2_{chunk}_{str(inter).lower()}_{str(batch).lower()}")
+            f.argtypes = [P] * 6 + [I] * 2 + [F] * 5 + [I] * 3 + [P, P]
+            speeds = torch.zeros_like(ten)
+            cur = torch.empty(B, device=dev)
+            des = torch.empty(B, device=dev)
+            args = (ten.data_ptr(), None, None, speeds.data_ptr(), cur.data_ptr(),
+                    des.data_ptr(), B, T, f32(rate), f32(fb), f32(nl), f32(0.01), f32(0.01),
+                    int(rate > 1.0), int(fb > 0.0), 8, cyc.data_ptr())
+            call = lambda: f(*args, torch._C._cuda_getCurrentRawStream(0))
+            assert call() == 0
+            torch.cuda.synchronize()
+            same = (torch.equal(speeds, want[0]) and torch.equal(cur, want[1][0])
+                    and torch.equal(des, want[1][1]))
+            row[f"t2_chunk{chunk}{'_interleave' if inter else ''}"
+                f"{'_batchstore' if batch else ''}_per8"] = {
+                "device_ms": timing.device_ms(call, dev),
+                "cycles_per_frame": int(cyc[0]) / T, "bitwise": same}
+        for chunk, store in TUNED:
+            f = getattr(lib, f"law_tuned_{chunk}_{'true' if store else 'false'}")
+            f.argtypes = [P] * 6 + [I] * 2 + [F] * 5 + [I] * 3 + [P, P]
+            for per in ((32,) if B == 1 else (32, 8, 1)):
+                speeds = torch.zeros_like(ten)
+                cur = torch.empty(B, device=dev)
+                des = torch.empty(B, device=dev)
+                args = (ten.data_ptr(), None, None, speeds.data_ptr(), cur.data_ptr(),
+                        des.data_ptr(), B, T, f32(rate), f32(fb), f32(nl), f32(0.01), f32(0.01),
+                        int(rate > 1.0), int(fb > 0.0), per, cyc.data_ptr())
+                call = lambda: f(*args, torch._C._cuda_getCurrentRawStream(0))
+                assert call() == 0
+                torch.cuda.synchronize()
+                same = (torch.equal(speeds, want[0]) and torch.equal(cur, want[1][0])
+                        and torch.equal(des, want[1][1])) if store else None
+                row[f"chunk{chunk}{'' if store else '_no_store'}_per{per}"] = {
+                    "device_ms": timing.device_ms(call, dev),
+                    "cycles_per_frame": int(cyc[0]) / T, "bitwise": same}
+        emit(phase="shapes", case=label, B=B, T=T, **row)
+
+
+def main(phases) -> int:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("law_variants: no CUDA device", file=sys.stderr)
         return 2
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        print(f"law_variants: unknown phases {sorted(unknown)}; phases: {PHASES}",
+              file=sys.stderr)
+        return 2
     OUT.mkdir(parents=True, exist_ok=True)
+    bodies = [p for p in phases if p.startswith("bodies:")]
+    if len(phases) > 1 and bodies:
+        # A body that faults takes its process's context with it: each runs alone.
+        for phase in bodies:
+            proc = subprocess.run([sys.executable, __file__, phase], capture_output=True,
+                                  text=True, timeout=600)
+            print(proc.stdout, end="", flush=True)
+            if proc.returncode != 0:
+                emit(phase=phase, failed=proc.stderr[-1500:])
+        phases = [p for p in phases if p not in bodies]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
@@ -525,85 +892,83 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     repo_lib = _build.build()
-    lib = build(_build)
-    sass(_build, {"repo": repo_lib, "variants": lib._name})
+    lib = build(_build) if set(phases) - {"edits", "clamp"} else None
+    if "sass" in phases:
+        sass(_build, {"repo": repo_lib, "variants": lib._name})
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stream = lambda: torch._C._cuda_getCurrentRawStream(0)
     sink = torch.zeros(4, device=dev)
     cyc = torch.zeros(4, dtype=torch.int64, device=dev)
 
-    # ---- latencies ----
-    fn = lib.law_latency
-    fn.argtypes = [I, F, F, F, I, P, P]
-    n = 4096
-    for op, name in LATENCY_OPS.items():
-        x, c, d = {1: (1.0, 0.9999999, 0.0), 2: (1.0, 0.5, 1.0), 3: (0.0, 1e-7, -1.0),
-                   4: (1.0, 1.0, 0.0)}.get(op, (1.0, 1.0 if op >= 5 else 1e-7, 1.0))
-        runs = []
-        for _ in range(3):
-            assert fn(op, x, c, d, n, sink.data_ptr(), cyc.data_ptr()) == 0
-            torch.cuda.synchronize()
-            runs.append(int(cyc[0]) / (16 * n))
-        emit(phase="latency", op=name, cycles_per_step=min(runs), runs=runs)
-    fn = lib.law_chain
-    fn.argtypes = [I, F, F, F, F, F, F, I, P, P]
-    for div, name in DIVISIONS.items():
-        for base in (3.5, 1.0):
-            runs = []
-            for _ in range(3):
-                assert fn(div, base, 3.5, 0.1, 1.0, 0.01, float(np.float32(0.01)), n,
-                          sink.data_ptr(), cyc.data_ptr()) == 0
-                torch.cuda.synchronize()
-                runs.append(int(cyc[0]) / (16 * n))
-            emit(phase="chain", division=name, base=base, cycles_per_frame=min(runs), runs=runs)
-
-    # ---- every denominator in [0.01, 2^126) ----
-    fn = lib.law_division_check
-    fn.argtypes = [I, F, ctypes.c_uint, ctypes.c_uint, P, P, P]
-    fd = float(np.float32(1.0 / 100.0))
-    lo = int(np.float32(0.01).view(np.uint32))
-    hi = int(np.float32(2.0 ** 126).view(np.uint32))
-    for div in (1, 2, 3, 4):
-        bad = torch.zeros(1, dtype=torch.int64, device=dev)
-        first = torch.full((1,), -1, dtype=torch.int32, device=dev)
-        last = torch.zeros(1, dtype=torch.int32, device=dev)
-        assert fn(div, fd, lo, hi, bad.data_ptr(), first.data_ptr(), last.data_ptr()) == 0
-        torch.cuda.synchronize()
-        as_f = lambda v: float(np.uint32(v & 0xFFFFFFFF).view(np.float32))
-        nbad = int(bad[0])
-        emit(phase="division", division=DIVISIONS[div], numerator=fd, lo=0.01, hi=2.0 ** 126,
-             denominators=hi - lo, mismatches=nbad,
-             first=as_f(int(first[0])) if nbad else None,
-             last=as_f(int(last[0])) if nbad else None)
-
-    # ---- bodies ----
-    bodies = {}
-    for name in BODIES:
-        f = getattr(lib, f"law_{name}")
-        f.argtypes = [P] * 6 + [I] * 2 + [F] * 5 + [I] * 2 + [P, P]
-        bodies[name] = f
     x60 = chip_smoke.bench_families(60 * 16000, 16000)[0]
     cfg16 = SpeedyConfig(16000)
     single = lambda: pipeline.nonlinear_speedup(x60, cfg16, 3.5, 1.0, 0.1, engine="grid",
                                                 device=dev)
-    rec = chip_smoke.recorded_call(kernels, "speed_law", single)
-    t60 = rec[0]
+    t60 = chip_smoke.recorded_call(kernels, "speed_law", single)[0]
     rng = np.random.default_rng(5)
     seeded = torch.as_tensor((rng.standard_normal((128, 999)) * 0.5).astype(np.float32),
                              device=dev)
-    cases = {"60 s call 3.5x fb 0.1": (t60, 3.5, 0.1, 1.0),
-             "[128, 999] 3.5x fb 0.1": (seeded, 3.5, 0.1, 1.0),
-             "[128, 999] 3.5x fb 0.0": (seeded, 3.5, 0.0, 1.0),
-             "[128, 999] 0.7x fb 0.1": (seeded, 0.7, 0.1, 1.0),
-             "[1, 999] 3.5x fb 0.1": (seeded[:1].contiguous(), 3.5, 0.1, 1.0)}
     f32 = lambda v: float(np.float32(v))
-    for label, (ten, rate, fb, nl) in cases.items():
-        B, T = ten.shape
-        want = kernels.speed_law(ten, rate, fb, nl)
-        row = {"repo_device_ms": timing.device_ms(lambda: kernels.speed_law(ten, rate, fb, nl),
-                                                  dev)}
-        for name, f in bodies.items():
+
+    if "latency" in phases:
+        # ---- latencies ----
+        fn = lib.law_latency
+        fn.argtypes = [I, F, F, F, I, P, P]
+        n = 4096
+        for op, name in LATENCY_OPS.items():
+            x, c, d = {1: (1.0, 0.9999999, 0.0), 2: (1.0, 0.5, 1.0), 3: (0.0, 1e-7, -1.0),
+                       4: (1.0, 1.0, 0.0)}.get(op, (1.0, 1.0 if op >= 5 else 1e-7, 1.0))
+            runs = []
+            for _ in range(3):
+                assert fn(op, x, c, d, n, sink.data_ptr(), cyc.data_ptr()) == 0
+                torch.cuda.synchronize()
+                runs.append(int(cyc[0]) / (16 * n))
+            emit(phase="latency", op=name, cycles_per_step=min(runs), runs=runs)
+        fn = lib.law_chain
+        fn.argtypes = [I, F, F, F, F, F, F, I, P, P]
+        for div, name in DIVISIONS.items():
+            for base in (3.5, 1.0):
+                runs = []
+                for _ in range(3):
+                    assert fn(div, base, 3.5, 0.1, 1.0, 0.01, float(np.float32(0.01)), n,
+                              sink.data_ptr(), cyc.data_ptr()) == 0
+                    torch.cuda.synchronize()
+                    runs.append(int(cyc[0]) / (16 * n))
+                emit(phase="chain", division=name, base=base, cycles_per_frame=min(runs), runs=runs)
+
+
+    if "division" in phases:
+        # ---- every denominator in [0.01, 2^126) ----
+        fn = lib.law_division_check
+        fn.argtypes = [I, F, ctypes.c_uint, ctypes.c_uint, P, P, P]
+        fd = float(np.float32(1.0 / 100.0))
+        lo = int(np.float32(0.01).view(np.uint32))
+        hi = int(np.float32(2.0 ** 126).view(np.uint32))
+        for div in (1, 2, 3, 4):
+            bad = torch.zeros(1, dtype=torch.int64, device=dev)
+            first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+            last = torch.zeros(1, dtype=torch.int32, device=dev)
+            assert fn(div, fd, lo, hi, bad.data_ptr(), first.data_ptr(), last.data_ptr()) == 0
+            torch.cuda.synchronize()
+            as_f = lambda v: float(np.uint32(v & 0xFFFFFFFF).view(np.float32))
+            nbad = int(bad[0])
+            emit(phase="division", division=DIVISIONS[div], numerator=fd, lo=0.01, hi=2.0 ** 126,
+                 denominators=hi - lo, mismatches=nbad,
+                 first=as_f(int(first[0])) if nbad else None,
+                 last=as_f(int(last[0])) if nbad else None)
+
+
+    for name in [p[len("bodies:"):] for p in phases if p.startswith("bodies:")]:
+        # ---- one body at the cases: the repository's kernel is the reference ----
+        f = getattr(lib, f"law_{name}")
+        f.argtypes = [P] * 6 + [I] * 2 + [F] * 5 + [I] * 2 + [P, P]
+        cases = {"60 s call 3.5x fb 0.1": (t60, 3.5, 0.1, 1.0),
+                 "[128, 999] 3.5x fb 0.1": (seeded, 3.5, 0.1, 1.0),
+                 "[1, 999] 3.5x fb 0.1": (seeded[:1].contiguous(), 3.5, 0.1, 1.0)}
+        for label, (ten, rate, fb, nl) in cases.items():
+            B, T = ten.shape
+            want = kernels.speed_law(ten, rate, fb, nl)
             speeds = torch.empty_like(ten)
             cur = torch.empty(B, device=dev)
             des = torch.empty(B, device=dev)
@@ -615,28 +980,35 @@ def main() -> int:
             torch.cuda.synchronize()
             same = (torch.equal(speeds, want[0]) and torch.equal(cur, want[1][0])
                     and torch.equal(des, want[1][1]))
-            cycles = int(cyc[0]) / T
-            row[name] = {"device_ms": timing.device_ms(call, dev), "cycles_per_frame": cycles,
-                         "bitwise": same}
-        emit(phase="bodies", case=label, B=B, T=T, **row)
+            emit(phase="bodies", body=name, case=label, B=B, T=T,
+                 cycles_per_frame=int(cyc[0]) / T, device_ms=timing.device_ms(call, dev),
+                 bitwise_to_kernel=same)
 
-    # ---- clamp share on the 60 s call ----
-    t = t60[0].double().cpu().numpy().astype(np.float32)
-    f = np.float32
-    rg, fb, ms, fdd = f(3.5), f(0.1), f(0.01), f(0.01)
-    cur = des = f(0.0)
-    clamped = 0
-    for v in t:
-        base = max(f(rg + f(f(1.0) - rg) * v), f(1.0))
-        e = f(fb * f(cur - des))
-        clamped += e <= ms
-        req = f(base + max(ms, e))
-        cur = f(cur + f(fdd / req))
-        des = f(des + f(fdd / rg))
-    emit(phase="clamp_share", case="60 s call 3.5x fb 0.1", T=len(t), share=clamped / len(t))
+    if "shapes" in phases:
+        shapes(lib, kernels, timing, t60, seeded, dev)
+
+    if "edits" in phases:
+        edits_phase(_build, kernels, timing, t60, seeded, dev)
+
+    if "clamp" in phases:
+        # ---- clamp share on the 60 s call ----
+        t = t60[0].double().cpu().numpy().astype(np.float32)
+        f = np.float32
+        rg, fb, ms, fdd = f(3.5), f(0.1), f(0.01), f(0.01)
+        cur = des = f(0.0)
+        clamped = 0
+        for v in t:
+            base = max(f(rg + f(f(1.0) - rg) * v), f(1.0))
+            e = f(fb * f(cur - des))
+            clamped += e <= ms
+            req = f(base + max(ms, e))
+            cur = f(cur + f(fdd / req))
+            des = f(des + f(fdd / rg))
+        emit(phase="clamp_share", case="60 s call 3.5x fb 0.1", T=len(t), share=clamped / len(t))
+
     return 0
 
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:] or list(PHASES)))

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: argument types, all returning a cudaError_t as int.
 _SIGNATURES = {
     "speedy_analysis_energy_lsd": [_P] * 6 + [_I] * 6 + [_F, _P],
@@ -57,6 +58,7 @@ _SIGNATURES = {
     "speedy_synth_bisect": [_P] * 6 + [_I] * 9 + [_P],
     "speedy_bisect_span_rows": [_P] * 5 + [_I] * 7 + [_P],
     "speedy_speed_law": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_I] * 2 + [_P],
+    "speedy_speed_law_division_check": [_U, _U, _P, _P],
 }
 
 

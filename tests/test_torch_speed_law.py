@@ -45,11 +45,19 @@ def _jax_law(tension, rate, fb, nl, cur0=None, des0=None):
     return np.asarray(speeds), np.asarray(cur), np.asarray(des)
 
 
-@pytest.mark.parametrize("T", [0, 1, 999, 6000])
-@pytest.mark.parametrize("B", [1, 5])
-@pytest.mark.parametrize("nl", NONLINEAR)
-@pytest.mark.parametrize("fb", FEEDBACK)
-@pytest.mark.parametrize("rate", RATES)
+# (rate, fb, nl, B, T): every setting at B in (1, 5) and T in (0, 1, 999,
+# 6000); then the lengths and batch sizes at the kernel's edges (chunks of
+# 16 frames, warps of 8 walkers; the parent's chunks of 64 and blocks of
+# 32), below and above 1x with feedback.
+LAW_CASES = [(rate, fb, nl, B, T) for rate in RATES for fb in FEEDBACK for nl in NONLINEAR
+             for B in (1, 5) for T in (0, 1, 999, 6000)]
+LAW_CASES += [(rate, 0.1, 1.0, B, T) for rate in (0.7, 3.5)
+              for B, T in ((1, 15), (1, 16), (1, 17), (1, 63), (1, 64), (1, 65), (1, 129),
+                           (7, 17), (9, 33), (31, 65), (33, 129), (128, 64), (128, 129))]
+
+
+@pytest.mark.parametrize("rate,fb,nl,B,T", LAW_CASES,
+                         ids=["-".join(map(str, case)) for case in LAW_CASES])
 def test_speed_law_matches_jax_scan(rate, fb, nl, B, T):
     tension = _tension(B, T)
     speeds, (cur, des) = kernels.speed_law(torch.as_tensor(tension), rate, fb, nl)
@@ -158,3 +166,15 @@ def test_batch_path_routes_through_the_kernel_wrapper_at_or_below_1x(counted, ra
         assert counted[0] == tuple(out.tension.shape)
     batched_nonlinear_speedup(xs, lengths, cfg, rate, reference=True)
     assert len(counted) == int(routed)
+
+
+def test_division_check_covers_the_law_range():
+    """The kernel's division is proved on every float32 from kMinimumSpeed
+    (the least denominator the law makes) to 2^126; the CPU has no card to
+    run the proof on and raises."""
+    lo, hi = kernels.DIVISION_CHECK_RANGE
+    as_float = lambda bits: float(np.uint32(bits).view(np.float32))
+    assert as_float(lo) == float(np.float32(0.01)) and as_float(hi) == 2.0 ** 126
+    assert hi - lo == 1_113_336_054
+    with pytest.raises(ValueError, match="on the card"):
+        kernels.speed_law_division_check("cpu")
