@@ -36,18 +36,17 @@
 // quotient by remainder x reciprocal) returns the correctly rounded
 // quotient, bit for bit __fdiv_rn's, for every float32 denominator in
 // [0.01, 2^126): the proof is exhaustive. speedy_speed_law_division_check
-// counts the denominators of a range where the two differ, chip_smoke.py
-// runs it over all 1,113,336,054 of them on the card and requires 0
-// (law_variants.py found 0 on an H100 80GB HBM3 at 700 W). law_divide
-// drops __fdiv_rn's range check (FCHK) and its branch to a slow path, and
-// takes three dependent steps after the reciprocal where __fdiv_rn takes
-// five: 29 cycles against 44 on that card (law_variants.py's clock64
-// chains). The kernel takes it only where fd and kMinimumSpeed are the
-// law's own values, so that every denominator is at least 0.01, and it
-// bounds each row's denominators off the chain, from its largest base
-// speed and the most its durations can part: a row whose bound reaches
-// 2^126, which no caller of the port makes, is walked again with
-// __fdiv_rn.
+// counts the denominators of a range where the two differ; chip_smoke.py
+// runs it over all 1,113,336,054 of them on the card and requires none
+// (none on an H100 80GB HBM3 at 700 W, law_variants.py at commit c4c951d).
+// law_divide drops __fdiv_rn's range check (FCHK) and its branch to a
+// slow path, and takes three dependent steps after the reciprocal where
+// __fdiv_rn takes five: 29 cycles against 44 on that card. The entry
+// point takes only the law's own fd and kMinimumSpeed, so that every
+// denominator is at least 0.01, and the kernel bounds each row's
+// denominators off the chain, from its largest base speed and the most
+// its durations can part: a row whose bound reaches 2^126, which no caller
+// of the port makes, is walked again with __fdiv_rn.
 //
 // Design: a warp a block, kWalkers walkers a warp (lanes 0 .. 7, an
 // utterance each), and nothing else: no shared memory, no barrier, no copy
@@ -57,15 +56,15 @@
 // durations) before its walk, and stores each speed straight to global
 // memory as it is made: loads and stores sit off the chain. A full chunk is
 // one straight run of code without a branch; only the last, partial chunk
-// tests each frame. Why these numbers (law_variants.py, H100 80GB HBM3,
-// 700 W, clock64 cycles a frame at 3.5x fb 0.1): chunks of 8, 16, 32 and
+// tests each frame. Why these numbers (law_variants.py at c4c951d, H100
+// 80GB HBM3, 700 W, clock64 cycles a frame at 3.5x fb 0.1): chunks of 8, 16, 32 and
 // 64 frames walked in 76, 73, 74 and 73 cycles at B = 1 and in 77, 74, 75
 // and 75 at [128, 999] with 8 walkers a warp. With 32 walkers a warp they
 // took 76-92 there: each walker's loads and stores touch a cache line of
 // their own, and a warp's 32 lines queue behind one another. One walker a
-// warp was no faster than 8. The parent kernel, a warp of 32 walkers and a
-// copy warp meeting at a block barrier every 64 frames, walked in 117
-// cycles at B = 1 and 153 at [128, 999].
+// warp was no faster than 8. The kernel takes 0.2285 ms device at the
+// 60 s call (T = 5,991) and 0.0411 at [128, 999] (kernel_ab.py), where
+// the chain alone, 52 cycles a frame, takes 0.157 and 0.026 ms.
 
 #include <cuda_runtime.h>
 
@@ -131,15 +130,9 @@ __device__ __forceinline__ void walk(const float* __restrict__ row, float* __res
     float base[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) base[j] = base_speed(kFast, law, one_minus_rg, next[j]);
-    if (kShort) {  // a tree of maxima, off the walk
-      float m[kChunk / 2];
+    if (kShort) {
 #pragma unroll
-      for (int j = 0; j < kChunk / 2; ++j) m[j] = fmaxf(base[2 * j], base[2 * j + 1]);
-#pragma unroll
-      for (int w = kChunk / 4; w >= 1; w /= 2)
-#pragma unroll
-        for (int j = 0; j < w; ++j) m[j] = fmaxf(m[2 * j], m[2 * j + 1]);
-      top = fmaxf(top, m[0]);
+      for (int j = 0; j < kChunk; ++j) top = fmaxf(top, base[j]);
     }
     const int c1 = c0 + kChunk;
 #pragma unroll
@@ -168,9 +161,8 @@ __device__ __noinline__ float2 rewalk(const float* __restrict__ row, float* __re
   return make_float2(cur, des);
 }
 
-// kFast: rg > 1, the speed-up branch of the law; kFeedback: fb > 0;
-// kShort: fd and min_speed are the law's own (law_divide applies).
-template <bool kFast, bool kFeedback, bool kShort>
+// kFast: rg > 1, the speed-up branch of the law; kFeedback: fb > 0.
+template <bool kFast, bool kFeedback>
 __global__ void __launch_bounds__(32)
 speed_law_kernel(const float* __restrict__ tension, const float* __restrict__ cur0,
                  const float* __restrict__ des0, float* __restrict__ speeds,
@@ -185,7 +177,7 @@ speed_law_kernel(const float* __restrict__ tension, const float* __restrict__ cu
   const float des_in = des0 != nullptr ? des0[b] : 0.f;
   const float des_step = __fdiv_rn(law.frame_duration, law.rg);
   float cur = cur_in, des = des_in, top = 0.f;
-  walk<kFast, kFeedback, kShort>(row, out, T, law, des_step, cur, des, top);
+  walk<kFast, kFeedback, true>(row, out, T, law, des_step, cur, des, top);
   // Every denominator is a base speed plus at most max(0.01, fb * |cur -
   // des|), and each frame moves cur by at most fd / 0.01 = 1 and des by
   // |fd / rg|. Where that could reach 2^126, past law_divide's proof (on
@@ -193,7 +185,7 @@ speed_law_kernel(const float* __restrict__ tension, const float* __restrict__ cu
   const float reach = __fadd_rn(fabsf(cur_in) + fabsf(des_in),
                                 __fmul_rn((float)T, __fadd_rn(1.f, fabsf(des_step))));
   const float feedback = kFeedback ? __fmul_rn(fabsf(law.fb), reach) : 0.f;
-  if (kShort && !(top < kHalfMaxDenominator && feedback < kHalfMaxDenominator)) {
+  if (!(top < kHalfMaxDenominator && feedback < kHalfMaxDenominator)) {
     const float2 again = rewalk<kFast, kFeedback>(row, out, T, law, des_step, cur_in, des_in);
     cur = again.x;
     des = again.y;
@@ -220,27 +212,21 @@ __global__ void division_check_kernel(uint32_t lo, uint32_t hi,
 
 // tension [B, T] float32, cur0/des0 [B] or null (zeros) -> speeds [B, T],
 // cur_out/des_out [B]. rg, fb, nl, min_speed and frame_duration are the
-// law's float32 scalars; fast and feedback its branches (rg > 1, fb > 0).
-// Returns a cudaError_t.
+// law's float32 scalars, min_speed and frame_duration the law's own
+// (0.01f each); fast and feedback its branches (rg > 1, fb > 0). Returns a
+// cudaError_t.
 extern "C" int speedy_speed_law(const float* tension, const float* cur0, const float* des0,
                                 float* speeds, float* cur_out, float* des_out, int B, int T,
                                 float rg, float fb, float nl, float min_speed,
                                 float frame_duration, int fast, int feedback, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (T < 0) return cudaErrorInvalidValue;
+  if (T < 0 || frame_duration != kFrameDuration || min_speed != kMinimumSpeed)
+    return cudaErrorInvalidValue;
   const Law law{rg, fb, nl, min_speed, frame_duration};
   const int blocks = (B + kWalkers - 1) / kWalkers;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool exact = frame_duration == kFrameDuration && min_speed == kMinimumSpeed;
-  const auto kernel =
-      exact ? (fast ? (feedback ? speed_law_kernel<true, true, true>
-                                : speed_law_kernel<true, false, true>)
-                    : (feedback ? speed_law_kernel<false, true, true>
-                                : speed_law_kernel<false, false, true>))
-            : (fast ? (feedback ? speed_law_kernel<true, true, false>
-                                : speed_law_kernel<true, false, false>)
-                    : (feedback ? speed_law_kernel<false, true, false>
-                                : speed_law_kernel<false, false, false>));
+  const auto kernel = fast ? (feedback ? speed_law_kernel<true, true> : speed_law_kernel<true, false>)
+                           : (feedback ? speed_law_kernel<false, true> : speed_law_kernel<false, false>);
   kernel<<<blocks, 32, 0, s>>>(tension, cur0, des0, speeds, cur_out, des_out, B, T, law);
   return cudaGetLastError();
 }

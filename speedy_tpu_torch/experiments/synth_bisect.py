@@ -31,7 +31,7 @@ from . import add_increments, covered, device_ms, launched, probe_device, requir
 from .gather_bisect import BATCH, R, plan, signal, span_plan, starts_n_valid
 
 STAGES = kernels.SYNTH_BISECT_STAGES
-EXACT = ("dma", "onehot", "barrel")  # copies: bitwise; the rest within 1e-6
+EXACT = STAGES  # the kernel does the plain version's float32 operations in its order
 CASES = tuple((stage, 6.0) for stage in STAGES) + (("full", 4.0),)  # synth_bisect.py:214-218
 
 
@@ -80,10 +80,9 @@ def read_words(stage: str, x, starts, n_valid, hop: int) -> int:
 
 def check(device="cuda") -> list:
     """Every case once through kernel 11 (the answer pass), each held to
-    its plain version (bitwise for the copies, within 1e-6 for interp and
-    full); full held to kernel 3's plain version within 1e-6 on the lanes
-    below hop of the live rows; then on the card the times. One row a
-    case."""
+    its plain version, bitwise at every stage; full held to kernel 3's
+    plain version within 1e-6 on the lanes below hop of the live rows;
+    then on the card the times. One row a case."""
     device = probe_device(device)
     p = plan()
     hop, K = p["hop"], p["K"]
