@@ -53,7 +53,8 @@ LAW_CASES = [(rate, fb, nl, B, T) for rate in RATES for fb in FEEDBACK for nl in
              for B in (1, 5) for T in (0, 1, 999, 6000)]
 LAW_CASES += [(rate, 0.1, 1.0, B, T) for rate in (0.7, 3.5)
               for B, T in ((1, 15), (1, 16), (1, 17), (1, 63), (1, 64), (1, 65), (1, 129),
-                           (7, 17), (9, 33), (31, 65), (33, 129), (128, 64), (128, 129))]
+                           (1, 1000), (7, 17), (9, 33), (31, 65), (33, 129), (33, 1000),
+                           (128, 64), (128, 129))]
 
 
 @pytest.mark.parametrize("rate,fb,nl,B,T", LAW_CASES,
