@@ -32,11 +32,14 @@ plain versions:
     each probe's question once through its kernel, then the kernel
     against its plain version and the library call, then its times
     (kernels 13 and 15 in pairs with their library calls, with each one's
-    host cost of a launch; kernel 15's dot forms also on a seeded normal E,
-    within the float32 bound of their products); the bisection probes
-    (kernels 10, 11, 14) time each stage of kernels 5 and 3's bodies and
-    hold the last stage to kernels 5 and 3; where there is a second card,
-    a launch on a tensor there while the first is current.
+    host cost of a launch; kernels 12 and 14 beside the card's floor for
+    one launch, a one-element fill_ timed in the same process; kernel 15's
+    dot forms also on a seeded normal E, within the float32 bound of their
+    products); the bisection probes (kernels 10, 11, 14) time each stage
+    of kernels 5 and 3's bodies and hold the last stage to kernels 5 and 3,
+    and kernel 14 is also held at every mode on an x2 that is not 16-byte
+    aligned; where there is a second card, a launch on a tensor there
+    while the first is current.
 Prints one line per phase, a JSON line of the kernels' launches, errors,
 times and bounds, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
@@ -1193,6 +1196,29 @@ def check_bisect_edges(kernels, dev) -> None:
     emit("bisect_edges", cases=cases, max_abs_err=worst)
 
 
+def check_span_rows_unaligned(kernels, dev) -> None:
+    """Kernel 14 on an x2 whose base is 4 bytes past a 16-byte boundary,
+    where the kernel makes 4-byte accesses in place of 16-byte ones:
+    bitwise to its plain version at every mode, with one launch each, on
+    the probe's inputs at R = 16, w_rows = 64."""
+    import torch
+    from speedy_tpu_torch.experiments import bisect_kernel
+
+    nvb, bases, q8k, x2 = bisect_kernel.inputs(16, 64, dev)
+    shifted = torch.empty(x2.numel() + 1, dtype=x2.dtype, device=dev)[1:].view(x2.shape)
+    shifted.copy_(x2)
+    check(shifted.data_ptr() % 16 == 4, "x2 not shifted", shifted.data_ptr() % 16)
+    kw = dict(rows_per_block=16, w_rows=64, nt=bisect_kernel.NT,
+              length_rows=bisect_kernel.LENGTH_ROWS)
+    for mode in bisect_kernel.MODES:
+        counts, got = path_launches(
+            kernels, lambda: kernels.bisect_span_rows(nvb, bases, q8k, shifted, mode, **kw))
+        want = kernels.bisect_span_rows_reference(nvb, bases, q8k, x2, mode, **kw)
+        check(counts["bisect_span_rows"] == 1 and torch.equal(got, want),
+              "bisect_span_rows unaligned x2", mode, counts["bisect_span_rows"])
+    emit("span_rows_unaligned", modes=len(bisect_kernel.MODES), x2_offset_bytes=4)
+
+
 # ---------------------------------------------------------------------------
 # The single-utterance path against the plain path
 # ---------------------------------------------------------------------------
@@ -1598,6 +1624,7 @@ def main() -> int:
     # ---- 3c. the experiment probes (kernels 9-15) ----
     results.update(probe_phase(kernels, dev))
     check_bisect_edges(kernels, dev)
+    check_span_rows_unaligned(kernels, dev)
     emit("other_card", **check_other_card(kernels))
 
     # ---- 4. the main path ----
@@ -1813,6 +1840,8 @@ def main() -> int:
                                 "shapes"),
         "pitch_ssd": ("shapes",),
         "gather_synth": ("bound_share", "shapes"),
+        "narrow_operand_sum": ("floor_device_ms", "over_floor"),
+        "bisect_span_rows": ("floor_device_ms", "over_floor"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

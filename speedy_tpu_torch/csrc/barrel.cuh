@@ -12,7 +12,8 @@
 // that output holds: 7 integer steps in place of 7 passes of pltpu.roll and
 // select over the whole slab. Where every row that a walk visits has the
 // same bits (kernels 10 and 11) the walk is one shift by bits; where
-// neighbouring rows differ (kernel 14) it is not.
+// neighbouring rows differ (kernel 14) it is not, and
+// barrel_source_two_rows walks it from the two rows' bits alone.
 
 #pragma once
 
@@ -43,6 +44,30 @@ __device__ __forceinline__ void barrel_source(Row& row, int& lane, Bits bits, Ne
       }
     }
   }
+}
+
+// Kernel 14's walk, from the bits of row i and of next(i) alone: returns
+// the source lane of output lane `lane` of row i, and `wrapped` when it
+// lies on next(i). A walk wraps at most once: it starts at a lane below 128
+// and its steps add at most 64 + 32 + ... + 1 = 127, so the lane it reaches
+// before any wrap is below 255, one wrap takes it below 127, and the steps
+// left cannot reach 128 again. So it reads no row past next(i), and with
+// both rows' bits in registers no load sits on it. In closed form, with s
+// = bits & 127: let p be the highest bit at which lane and s agree. Above
+// p each has a 1 the other lacks. If both have a 1 at p, the steps from 6
+// down to p take lane to exactly 128 + (lane & below), below = 2^p - 1:
+// the walk wraps there, and steps p - 1 .. 0 add next_bits & below. If both
+// have a 0 at p, or there is no p, lane + s < 128 and it never wraps. So it
+// wraps iff lane + s >= 128, and then lands on (lane & below) + (next_bits
+// & below). Only the low 7 bits of either enter, so any int32 bits
+// (negative ones too) walk as barrel_source does.
+__device__ __forceinline__ int barrel_source_two_rows(int bits, int next_bits, int lane,
+                                                      bool& wrapped) {
+  const int s = bits & (kLanes - 1), sum = lane + s;
+  // 2^p - 1, or 0 where lane and s agree nowhere (the shift clamps at 32)
+  const int below = __funnelshift_rc(0x7fffffff, 0, __clz(~(s ^ lane) & (kLanes - 1)));
+  wrapped = sum >= kLanes;
+  return wrapped ? (lane & below) + (next_bits & below) : sum;
 }
 
 // floor(a / b) for b > 0, as Python's //.

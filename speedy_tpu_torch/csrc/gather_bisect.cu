@@ -28,14 +28,32 @@
 // stage's output comes from read once (166 MB of output for kernel 10 at
 // the experiment's shape, about 0.05 ms at 3.35 TB/s).
 //
-// Design: a warp per output row (kernel 10) or slab row (kernel 14), its
-// lanes on consecutive samples, eight rows to a block of threads, a grid
-// of (row chunks, NB, B). Kernel 10's blocks find their span's base and
-// keep its rows' offsets in shared memory. On the card the TPU's
-// span DMA, one-hot matmul and pltpu.roll become index arithmetic: each
-// element's source is computed (for the shift by barrel_source) and read
+// Design: on the card the TPU's span DMA, one-hot matmul and pltpu.roll
+// become index arithmetic: each element's source is computed and read
 // straight from global memory, so the stages differ only in that
 // arithmetic, and their times say what each costs.
+//
+// Kernel 10: a warp per output row, its lanes on consecutive samples, eight
+// rows to a block of threads, a grid of (row chunks, NB, B). Its blocks
+// find their span's base and keep its rows' offsets in shared memory; the
+// shift's source comes from barrel_source.
+//
+// Kernel 14 (bound 0.0007 ms at the experiment's R = 128, w_rows = 1,024,
+// under one launch): a warp per slab row, a thread on 4 consecutive lanes,
+// so a row is one 16-byte store a thread; a warp writes
+// kSpanRowsPerWarp rows, loads of all of them issued before any store,
+// over a grid of (row chunks, NB, B). dma and dot read whole x2 rows as
+// 16-byte loads (the bounds test is per row). The shift needs only
+// q8k[i] and q8k[next(i)]: a walk wraps at most once, and
+// barrel_source_two_rows (barrel.cuh) finds its end in closed form, in
+// registers with no load on its chain; a thread's four loads then issue
+// together, predicated, with no branch between them. On the card the
+// walk's integer operations set the shift's time more than its loads do
+// (a step-by-step walk with no loads took longer than the select with
+// its load), hence the closed form, a few operations a lane. Where x2 or out
+// is not 16-byte aligned the same kernel makes 4-byte accesses.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -84,52 +102,113 @@ gather_bisect_kernel(const float* __restrict__ x, const int* __restrict__ starts
   }
 }
 
-template <int Stage>
+// Kernel 14's slab rows a warp writes; a block of threads writes kWarps
+// times as many. kernel_ab.py's variant_sweep builds this source with
+// other values to time them.
+#ifndef SPEEDY_SPAN_ROWS_PER_WARP
+#define SPEEDY_SPAN_ROWS_PER_WARP 1
+#endif
+constexpr int kSpanRowsPerWarp = SPEEDY_SPAN_ROWS_PER_WARP;
+constexpr int kSpanRowsPerBlock = kWarps * kSpanRowsPerWarp;
+
+// Four consecutive floats: one 16-byte access where the tensors allow it
+// (kVec), else four 4-byte ones.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ p) {
+  if (kVec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  if (kVec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x, p[1] = v.y, p[2] = v.z, p[3] = v.w;
+  }
+}
+
+template <int Stage, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bisect_span_rows_kernel(const int* __restrict__ nvb, const int* __restrict__ bases,
                         const int* __restrict__ q8k, const float* __restrict__ x2,
                         float* __restrict__ out, int tot, int w_rows, int length_rows,
                         int n_rows) {
   const int nb = blockIdx.y, b = blockIdx.z;
-  const int i = blockIdx.x * kWarps + threadIdx.x / 32;  // this warp's slab row
-  if (i >= tot) return;
+  const int first = (blockIdx.x * kWarps + threadIdx.x / 32) * kSpanRowsPerWarp;
+  if (first >= tot) return;
+  const int l0 = threadIdx.x % 32 * 4;  // this thread's 4 lanes of each of its warp's rows
+  const int rows = min(kSpanRowsPerWarp, tot - first);
   const long long blk = (long long)b * gridDim.y + nb;
   const int* __restrict__ q = q8k + blk * tot;
-  float* o = out + (blk * tot + i) * kLanes;
+  float4 v[kSpanRowsPerWarp];
   if (Stage == kNoCopy) {
-    const float v = (float)__ldg(q + i);
-    for (int l = threadIdx.x % 32; l < kLanes; l += 32) o[l] = v;
-    return;
-  }
-  if (nb >= nvb[b]) {
-    for (int l = threadIdx.x % 32; l < kLanes; l += 32) o[l] = 0.f;
-    return;
-  }
-  const int row0 = b * length_rows + bases[blk];
-  auto span = [&](int row, int lane) {  // span row `row`; an empty one-hot row past w_rows
-    const int g = row0 + row;
-    return row >= 0 && row < w_rows && g >= 0 && g < n_rows
-               ? __ldg(x2 + (long long)g * kLanes + lane) : 0.f;
-  };
-  for (int l = threadIdx.x % 32; l < kLanes; l += 32) {
-    if (Stage == kCopy) {
-      o[l] = span(i, l) * 1.f + (float)__ldg(q + i);
-      continue;
+#pragma unroll
+    for (int r = 0; r < kSpanRowsPerWarp; ++r)
+      if (r < rows) {
+        const float f = (float)__ldg(q + first + r);
+        v[r] = make_float4(f, f, f, f);
+      }
+  } else if (nb >= nvb[b]) {
+#pragma unroll
+    for (int r = 0; r < kSpanRowsPerWarp; ++r) v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    const unsigned row0 = b * length_rows + bases[blk];
+    // Whether span row `row`, x2's row g, is read: inside the span's
+    // w_rows (else its one-hot row is empty) and inside x2 (else zeros).
+    auto inside = [&](int row, unsigned g) {
+      return (unsigned)row < (unsigned)w_rows && g < (unsigned)n_rows;
+    };
+#pragma unroll
+    for (int r = 0; r < kSpanRowsPerWarp; ++r) {
+      if (r >= rows) continue;
+      const int i = first + r, qi = __ldg(q + i);
+      if (Stage == kCopy || Stage == kSelect) {
+        const int row = Stage == kCopy ? i : qi;
+        const unsigned g = row0 + row;
+        v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (inside(row, g)) v[r] = load4<kVec>(x2 + (size_t)g * kLanes + l0);
+        if (Stage == kCopy) {
+          const float f = (float)qi;
+          v[r] = make_float4(v[r].x * 1.f + f, v[r].y * 1.f + f, v[r].z * 1.f + f,
+                             v[r].w * 1.f + f);
+        }
+        continue;
+      }
+      // The shift: each lane's walk from row i's and next(i)'s bits in
+      // registers, then one load from the select row it ends on (span row
+      // q8k[i], or q8k[next(i)] past the wrap), all four issued together.
+      const int qn = __ldg(q + (i + 1 == tot ? 0 : i + 1));
+      const unsigned gi = row0 + qi, gn = row0 + qn;
+      const bool in_i = inside(qi, gi), in_n = inside(qn, gn);
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bool wrapped;
+        const int lane = barrel_source_two_rows(qi, qn, l0 + j, wrapped);
+        e[j] = (wrapped ? in_n : in_i) ? __ldg(x2 + (size_t)(wrapped ? gn : gi) * kLanes + lane)
+                                       : 0.f;
+      }
+      v[r] = make_float4(e[0], e[1], e[2], e[3]);
     }
-    int row = i, lane = l;
-    if (Stage == kShift)
-      barrel_source(row, lane, [&](int j) { return __ldg(q + j); },
-                    [&](int j) { return j + 1 == tot ? 0 : j + 1; });
-    o[l] = span(__ldg(q + row), lane);
   }
+  float* o = out + (blk * tot + first) * kLanes + l0;
+#pragma unroll
+  for (int r = 0; r < kSpanRowsPerWarp; ++r)
+    if (r < rows) store4<kVec>(o + r * kLanes, v[r]);
 }
 
 // The stages' instances, indexed by the C entry points' `stage`.
 const decltype(&gather_bisect_kernel<kCopy>) kGatherStages[] = {
     gather_bisect_kernel<kCopy>, gather_bisect_kernel<kSelect>, gather_bisect_kernel<kShift>};
-const decltype(&bisect_span_rows_kernel<kCopy>) kSpanRowsStages[] = {
-    bisect_span_rows_kernel<kCopy>, bisect_span_rows_kernel<kSelect>,
-    bisect_span_rows_kernel<kShift>, bisect_span_rows_kernel<kNoCopy>};
+// Kernel 14's by [16-byte accesses][stage].
+const decltype(&bisect_span_rows_kernel<kCopy, true>) kSpanRowsStages[2][4] = {
+    {bisect_span_rows_kernel<kCopy, false>, bisect_span_rows_kernel<kSelect, false>,
+     bisect_span_rows_kernel<kShift, false>, bisect_span_rows_kernel<kNoCopy, false>},
+    {bisect_span_rows_kernel<kCopy, true>, bisect_span_rows_kernel<kSelect, true>,
+     bisect_span_rows_kernel<kShift, true>, bisect_span_rows_kernel<kNoCopy, true>}};
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -165,8 +244,11 @@ extern "C" int speedy_bisect_span_rows(const int* nvb, const int* bases, const i
   if (stage < kCopy || stage > kNoCopy || B > 65535 || NB > 65535 ||
       (stage == kCopy && tot > w_rows))
     return cudaErrorInvalidValue;
-  const dim3 grid((tot + kWarps - 1) / kWarps, NB, B);
-  kSpanRowsStages[stage]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (w_rows < 0) w_rows = 0;  // the kernel compares rows with them unsigned
+  if (n_rows < 0) n_rows = 0;
+  const dim3 grid((tot + kSpanRowsPerBlock - 1) / kSpanRowsPerBlock, NB, B);
+  const bool vec = aligned16(x2) && aligned16(out);
+  kSpanRowsStages[vec][stage]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       nvb, bases, q8k, x2, out, tot, w_rows, length_rows, n_rows);
   return cudaGetLastError();
 }

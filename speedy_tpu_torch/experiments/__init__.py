@@ -25,8 +25,10 @@ the launch path's) and the device time of its kernel alone (device_ms,
 by torch.profiler). Kernels 13 and 15, whose bodies run at the card's
 floor for a launch, time kernel and library call as pairs in one loop
 (paired_ms) and add each one's host cost of a launch (launch_us,
-library_launch_us). It returns one row a case with the answer, the
-errors and the times. A failed check raises ProbeFailure. On the CPU the
+library_launch_us); kernels 12 and 14 add the card's floor for one launch
+in the same process (floor_device_ms, a one-element fill_) and their
+device ms over it (over_floor). It returns one row a case with the
+answer, the errors and the times. A failed check raises ProbeFailure. On the CPU the
 wrappers run their plain versions, and no time is taken.
 """
 
@@ -38,7 +40,7 @@ from typing import Callable
 
 import torch
 
-from .timing import device_ms, launch_us, paired_ms, time_ms  # noqa: F401
+from .timing import device_ms, floor_device_ms, launch_us, paired_ms, time_ms  # noqa: F401
 
 
 class ProbeFailure(AssertionError):

@@ -19,7 +19,9 @@ taken over the live blocks (the port writes the dead block as zeros; the
 TPU kernel leaves it unwritten), the launches, the difference from the
 plain version, and on the card the median ms of a call by CUDA events and
 the device ms of the kernel (torch.profiler), each with its increment over
-the mode before, and the plain version's ms.
+the mode before, the card's floor for one launch (floor_device_ms, a
+one-element fill_ in the same process) and the device ms over it
+(over_floor), and the plain version's ms.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from . import add_increments, covered, device_ms, launched, probe_device, require, time_ms
+from . import (add_increments, covered, device_ms, floor_device_ms, launched, probe_device,
+               require, time_ms)
 
 B, NB, NT, LENGTH_ROWS = 2, 3, 4, 1600  # experiments/bisect_kernel.py:8-11
 NVB = (3, 2)
@@ -66,10 +69,14 @@ def read_words(mode: str, nvb, bases, q8k, x2, R: int) -> int:
     return q8k.numel() + B + B * NB + rows * kernels.LANES
 
 
-def run(mode: str, R: int, w_rows: int, device) -> dict:
+def run(mode: str, R: int, w_rows: int, device, floor=None) -> dict:
     """One mode through kernel 14 (the answer pass), held bitwise to its
-    plain version; then on the card the times. One row."""
+    plain version; then on the card the times, the device ms also over
+    floor, the card's floor for one launch (floor_device_ms; taken here
+    when not given). One row."""
     device = probe_device(device)
+    if floor is None:
+        floor = floor_device_ms(device)
     nvb, bases, q8k, x2 = inputs(R, w_rows, device)
     kw = dict(rows_per_block=R, w_rows=w_rows, nt=NT, length_rows=LENGTH_ROWS)
     call = lambda: kernels.bisect_span_rows(nvb, bases, q8k, x2, mode, **kw)
@@ -78,18 +85,22 @@ def run(mode: str, R: int, w_rows: int, device) -> dict:
     ref = plain()
     d = float((out - ref).abs().max())
     require(torch.equal(out, ref), mode, R, w_rows, "kernel 14 against its plain version", d)
+    dev_ms = device_ms(call, device)
     return dict(
         probe="bisect_kernel", mode=mode, R=R, w_rows=w_rows, launches=n,
         checksum_live_blocks=float(out[:, :, :1].sum()), max_abs_err=d,
         out_words=out.numel(), read_words=read_words(mode, nvb, bases, q8k, x2, R),
-        ms=time_ms(call, device), device_ms=device_ms(call, device),
+        ms=time_ms(call, device), device_ms=dev_ms, floor_device_ms=floor,
+        over_floor=None if dev_ms is None or not floor else dev_ms / floor,
         plain_ms=time_ms(plain, device), library_ms=None)
 
 
 def check(device="cuda") -> list:
     """Every mode at R = 128, w_rows = 1,024 (R * 4 = 512 rows a block), in
-    MODES' order, with each one's increments over the mode before."""
-    return add_increments([run(mode, CHECK_R, CHECK_W_ROWS, device) for mode in MODES])
+    MODES' order, with each one's increments over the mode before, all
+    read against one floor for a launch."""
+    floor = floor_device_ms(probe_device(device))
+    return add_increments([run(mode, CHECK_R, CHECK_W_ROWS, device, floor) for mode in MODES])
 
 
 def main(argv=None) -> int:

@@ -1,20 +1,24 @@
-"""Does a 1-wide operand cost a padded copy on the H100?
+"""Does a 1-wide operand cost anything on the H100?
 
 Port of experiments/lane1_blockspec_probe.py through kernel 12
 (kernels.narrow_operand_sum, csrc/narrow_operands.cu). Per utterance b of
-96, the kernel copies three [R, C] blocks whole into shared memory, as the
-probe's BlockSpecs copy them into VMEM, and writes o[b, 0:8, 0] = a * amp +
-b + c of rows 0..7, column 0. The probe's window sums o over 24 amps, one
-launch each. Two layouts of the same 16 KiB block: narrow [4096, 1] and
-lane-dense [32, 128]. On the TPU a 1-wide block pads to 128 lanes in VMEM;
-on the card a contiguous [4096, 1] tensor holds the same consecutive words
-as a [32, 128] one, so no padding is expected, and the probe measures it.
+96, the kernel writes o[b, 0:8, 0] = a * amp + b + c of rows 0..7, column
+0, reading only those 3 x 8 words, a thread an output. The probe's window
+sums o over 24 amps, one launch each. Two layouts of the same 16 KiB
+block: narrow [4096, 1], where an utterance's eight words of an operand
+share one 32-byte sector, and lane-dense [32, 128], where they lie 512
+bytes apart. On the TPU a 1-wide block pads to 128 lanes in VMEM when the
+BlockSpec copies it; on the card a contiguous [4096, 1] tensor holds the
+same consecutive words as a [32, 128] one and nothing is copied, so the
+two layouts' device times answer the question.
 
     python -m speedy_tpu_torch.experiments.lane1_blockspec_probe [--device cuda]
 
 Prints one JSON line a layout: the window's value from the kernel and the
-plain version, and on the card the median ms of one launch, of its plain
-version, and of the 24-launch window a step (the probe's own figure).
+plain version, and on the card the median ms of one launch, its device ms
+beside the card's floor for one launch (floor_device_ms, a one-element
+fill_, and over_floor, the ratio), the plain version's ms, and the
+24-launch window's ms a step (the probe's own figure).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from . import device_ms, launched, probe_device, require, run_main, time_ms
+from . import device_ms, floor_device_ms, launched, probe_device, require, run_main, time_ms
 
 B, N, NIT = 96, 4096, 24  # experiments/lane1_blockspec_probe.py:16-17
 SHAPES = ((N, 1), (N // 128, 128))
@@ -61,17 +65,21 @@ def window(outs) -> torch.Tensor:
 
 def check(device="cuda") -> list:
     """The probe's window at both layouts through kernel 12, and the
-    kernel against its plain version: every launch's outputs within 1e-6,
-    and the two windows within 1e-6 of the window's size. One row a
-    layout, with the window's ms a step."""
+    kernel against its plain version: every launch's outputs bitwise (the
+    same three float32 roundings in the same order), and the two windows
+    within 1e-6 of the window's size. One row a layout, with the window's
+    ms a step and the kernel's device ms over the card's floor for one
+    launch, taken in this process."""
     device = probe_device(device)
     ref = kernels.narrow_operand_sum_reference
+    floor = floor_device_ms(device)
     rows = []
     for shape, (a, b, c, amps) in inputs(device).items():
         outs, n = launched("narrow_operand_sum", lambda: outputs(a, b, c, amps))
         plains = outputs(a, b, c, amps, ref)
         d = max(float((o - p).abs().max()) for o, p in zip(outs, plains))
-        require(d <= 1e-6, shape, "kernel against plain", d)
+        require(all(torch.equal(o, p) for o, p in zip(outs, plains)), shape,
+                "kernel against plain", d)
         w_k, w_p = float(window(outs)), float(window(plains))
         require(abs(w_k - w_p) <= 1e-6 * max(abs(w_p), 1.0), shape, "window", w_k, w_p)
         call = lambda: kernels.narrow_operand_sum(a, b, c, amps[0])
@@ -80,10 +88,12 @@ def check(device="cuda") -> list:
             ms = time_ms(lambda: window(outputs(a, b, c, amps, fn)), device)
             return None if ms is None else ms / NIT
 
+        dev_ms = device_ms(call, device)
         rows.append(dict(
             probe="lane1_blockspec", shape=[B, *shape], amps=len(amps), launches=n,
             window=w_k, plain_window=w_p, max_abs_err=d,
-            ms=time_ms(call, device), device_ms=device_ms(call, device),
+            ms=time_ms(call, device), device_ms=dev_ms, floor_device_ms=floor,
+            over_floor=None if dev_ms is None or not floor else dev_ms / floor,
             plain_ms=time_ms(lambda: ref(a, b, c, amps[0]), device), library_ms=None,
             window_ms_per_step=per_step(None), plain_window_ms_per_step=per_step(ref)))
     return rows

@@ -102,3 +102,14 @@ def device_ms(fn: Callable, device: torch.device, reps: int = 20) -> Optional[fl
     if not events:
         return None
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+
+
+def floor_device_ms(device: torch.device, reps: int = 20) -> Optional[float]:
+    """The card's floor for one launch: device_ms of a one-element
+    Tensor.fill_, a kernel that does next to nothing, taken in the caller's
+    process so that a kernel far under a launch can be read against it.
+    None off the card (not measured)."""
+    if device.type != "cuda":
+        return None
+    one = torch.zeros(1, dtype=torch.float32, device=device)
+    return device_ms(lambda: one.fill_(1.0), device, reps)

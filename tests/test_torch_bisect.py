@@ -252,6 +252,97 @@ def test_bisect_span_rows_dma_needs_the_rows():
 
 
 # ---------------------------------------------------------------------------
+# Kernel 14's walk from two rows' bits (csrc/barrel.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _high_bit(x):
+    """The position of x's highest set bit, x in [1, 128)."""
+    return sum((x >= (1 << b)).astype(int) for b in range(1, 7))
+
+
+def _walk_steps(bits, next_bits, lane):
+    """barrel_source step by step, on row i and next(i) alone: (source
+    lane, source on next(i))."""
+    lane, cur = np.array(lane), np.array(bits)
+    wrapped = np.zeros(lane.shape, bool)
+    for k in range(6, -1, -1):
+        lane = lane + (cur & (1 << k))
+        past = lane >= 128
+        lane = np.where(past, lane - 128, lane)
+        cur = np.where(past, next_bits, cur)
+        wrapped |= past
+    return lane, wrapped
+
+
+def _walk(bits, next_bits, lane):
+    """barrel_source_two_rows (csrc/barrel.cuh): the walk in closed form.
+    It wraps iff lane + s >= 128 (s = bits & 127), onto (lane & below) +
+    (next_bits & below), below = 2^p - 1 for the highest bit p at which
+    lane and s agree (0 where they agree nowhere)."""
+    s = bits & 127
+    agree = ~(s ^ lane) & 127
+    below = np.where(agree > 0, (1 << _high_bit(np.maximum(agree, 1))) - 1, 0)
+    wrapped = lane + s >= 128
+    return np.where(wrapped, (lane & below) + (next_bits & below), lane + s), wrapped
+
+
+def test_two_row_walk_closed_form_matches_the_steps():
+    """Every low 7 bits of row i and of next(i), every lane: the closed
+    form lands where the 7 steps do, and a walk wraps at most once."""
+    s, n, lane = (a.ravel() for a in np.meshgrid(np.arange(128), np.arange(128),
+                                                 np.arange(128), indexing="ij"))
+    want = _walk_steps(s, n, lane)
+    got = _walk(s, n, lane)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert want[0].min() >= 0 and want[0].max() < 128
+
+
+def _walk_case(name):
+    """q8k [tot] for one block of kernel 14's slab, by case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "probe":  # the probe's picks: R = 128, w_rows = 1,024
+        return rng.integers(0, 1023, 512)
+    if name == "negative":
+        return rng.integers(-5000, 0, 512)
+    if name == "past_w_rows":
+        return rng.integers(1024, 1 << 20, 512)
+    if name == "low_bits_set":  # q & 127 == 127, beside neighbours of other bits
+        q = rng.integers(-1 << 12, 1 << 12, 512) | 127
+        q[1::3] = rng.integers(-1 << 12, 1 << 12, q[1::3].shape)
+        return q
+    if name == "int32_ends":
+        return rng.choice(np.array([-(1 << 31), -(1 << 31) + 127, -1, 0, 127, 128,
+                                    (1 << 31) - 129, (1 << 31) - 1]), 512)
+    R = int(name[len("last_row_R"):])  # chip_smoke.check_bisect_edges' picks at R = 8, 12
+    q = rng.integers(-3, 43, R * 4)
+    q[-1] = 127  # the last row wraps onto row 0 from every lane but 0
+    return q
+
+
+WALK_CASES = ["probe", "negative", "past_w_rows", "low_bits_set", "int32_ends",
+              "last_row_R8", "last_row_R12"]
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_two_row_walk_matches_the_barrel(name):
+    """Kernel 14's shift as the kernel makes it, each output (i, l) from
+    q8k[i] and q8k[next(i)] alone (next(tot - 1) = 0), against _barrel's
+    7 roll-and-select passes over a slab of distinct values."""
+    q = _walk_case(name).astype(np.int32)
+    tot = q.size
+    slab = torch.arange(tot * 128, dtype=torch.float32).reshape(tot, 128)
+    want = kernels._barrel(slab, torch.as_tensor(q), 1).numpy()
+    i, lane = np.meshgrid(np.arange(tot), np.arange(128), indexing="ij")
+    nxt = (i + 1) % tot
+    src, wrapped = _walk(q[i].astype(np.int64), q[nxt].astype(np.int64), lane)
+    np.testing.assert_array_equal(slab.numpy()[np.where(wrapped, nxt, i), src], want)
+    if name.startswith("last_row"):
+        assert wrapped[-1, 1:].all()
+
+
+# ---------------------------------------------------------------------------
 # The entry points, on the CPU at a small batch
 # ---------------------------------------------------------------------------
 

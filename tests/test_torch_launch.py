@@ -14,8 +14,8 @@ from speedy_tpu_torch.ops import _build, kernels
 CSRC = pathlib.Path(_build.__file__).resolve().parent.parent / "csrc"
 # The C entry points whose kernels take dynamic shared memory above the
 # default 48 KB, and so must grant it.
-GRANTING_SOURCES = ("analysis.cu", "pitch.cu", "narrow_operands.cu", "gather_pipelined.cu",
-                    "gather_block.cu", "gather_coalesced.cu", "bf16_split.cu", "synth.cu")
+GRANTING_SOURCES = ("analysis.cu", "pitch.cu", "gather_pipelined.cu", "gather_block.cu",
+                    "gather_coalesced.cu", "bf16_split.cu", "synth.cu")
 STREAM = 0x5EED
 
 
@@ -140,6 +140,14 @@ def test_entry_point_grants_through_the_helper(source):
     text = (CSRC / source).read_text()
     assert '#include "shared_grant.cuh"' in text
     assert "speedy::grant_shared_bytes(" in text
+
+
+def test_narrow_operands_take_no_shared_memory():
+    """Kernel 12 reads its 3 x 8 words an utterance straight from global
+    memory: no shared memory, so no grant."""
+    text = (CSRC / "narrow_operands.cu").read_text()
+    assert "__shared__" not in text and "__syncthreads" not in text
+    assert "shared_grant.cuh" not in text and "grant_shared_bytes" not in text
 
 
 def test_grant_helper_keeps_a_high_water_mark():
