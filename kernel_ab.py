@@ -41,10 +41,6 @@ checkout's kernels and timing them with this checkout's clocks
     CUDA-event and device ms, floor_device_ms (the device ms of a
     one-element fill_ in the same process, the card's floor for one
     launch), and a sha256 of each output (probe_digests);
-  - where the checkout's sources carry VARIANTS' macros, kernel 12 built
-    at 32, 64, 128 and 256 threads a block and kernel 14 at 1, 2 and 4
-    slab rows a warp, each bitwise to its plain version, with their
-    device ms at the same inputs (variants);
   - where the checkout has ops/synth_model.py (kernel 3 in runs of S
     slots a block), kernel 3's device ms at S = 1 .. 16 beside the plan's
     S, at the same shapes (synth_runs);
@@ -53,8 +49,8 @@ checkout's kernels and timing them with this checkout's clocks
     44.1 kHz (3.5x, capacity factor 1.33).
 Each process prints its rows as one JSON line; the last line is the
 summary: per kernel and shape, each checkout's median over its two
-processes of every time (this checkout's alone for synth_runs,
-direct_forms and variants), and kernel 2's integer flips and share of
+processes of every time (this checkout's alone for synth_runs and
+direct_forms), and kernel 2's integer flips and share of
 cells more than 0.1 sample off the float64 search; per digest shape
 (kernel 1's, kernel 11's, the speed law's, kernels 12 and 14's), whether
 all four processes gave the same bytes (bitwise_to_other). The card's
@@ -67,11 +63,9 @@ is one such process: the checkout at ROOT, one JSON line.
 
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import json
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -84,11 +78,7 @@ TIMES = ("ms", "device_ms", "launch_us", "library_ms", "library_launch_us", "flo
 # The rows that hold a sha256 per shape, compared across the four processes.
 DIGESTS = ("analysis_digests", "synth_bisect_digests", "law_digests", "probe_digests")
 # This checkout's rows alone, a median over its two processes per key.
-OWN = ("synth_runs", "direct_forms", "variants")
-# Compile-time constants that variant_sweep builds a source with, each
-# value into a library of its own: source -> (macro, values).
-VARIANTS = {"narrow_operands.cu": ("SPEEDY_NARROW_THREADS", (32, 64, 128, 256)),
-            "gather_bisect.cu": ("SPEEDY_SPAN_ROWS_PER_WARP", (1, 2, 4))}
+OWN = ("synth_runs", "direct_forms")
 
 
 def median_of(values):
@@ -270,105 +260,6 @@ def probe_rows(chip_smoke, kernels, dev) -> tuple:
                lambda: kernels.bisect_span_rows(nvb, bases, q8k, x2, mode, **kw),
                lambda: kernels.bisect_span_rows_reference(nvb, bases, q8k, x2, mode, **kw))
     return rows, digests
-
-
-def build_variants(_build) -> dict:
-    """Each of VARIANTS' sources built alone, once a value, into a shared
-    library of its own beside the checkout's build (nvcc in parallel, with
-    _build's flags): (source, value) -> ctypes.CDLL. A source without its
-    macro is skipped (an older checkout)."""
-    jobs = {}
-    for src, (macro, values) in VARIANTS.items():
-        path = _build.CSRC / src
-        if macro not in path.read_text():
-            continue
-        out_dir = _build.BUILD_DIR / "variants" / _build.source_hash()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        for v in values:
-            lib = out_dir / f"{path.stem}_{macro}_{v}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-D{macro}={v}", "-o",
-                   str(lib), str(path)]
-            jobs[(src, v)] = (lib, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for key, (lib, cmd, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
-        libs[key] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def default_of(_build, src: str):
-    """The value a source's VARIANTS macro takes in the kernels' own build."""
-    macro = VARIANTS[src][0]
-    m = re.search(rf"#define {macro} (\d+)", (_build.CSRC / src).read_text())
-    return int(m.group(1)) if m else None
-
-
-def variant_sweep(chip_smoke, kernels, _build, dev) -> dict:
-    """Kernel 12 at each block size of VARIANTS (threads=n) at both of its
-    probe's layouts, and kernel 14 at each count of slab rows a warp
-    (rows_per_warp=n; 8 warps a block) at every mode of its probe, each
-    launched through the variant library's C entry point and held bitwise
-    to the plain version (each call is timed as soon as it is made): label
-    -> {"default": the build's value, key: device ms (the median of three
-    profiler readings), "floor_device_ms"}.
-    Empty for a checkout whose sources lack the macros."""
-    import torch
-    from speedy_tpu_torch.experiments import bisect_kernel, lane1_blockspec_probe
-
-    libs = build_variants(_build)
-    if not libs:
-        return {}
-    clock = this_timing()
-    stream = lambda: torch._C._cuda_getCurrentRawStream(dev.index)
-    floor = median_of([clock.floor_device_ms(dev) for _ in range(3)])
-    rows = {}
-
-    def bind(lib, name):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _build._SIGNATURES[name], ctypes.c_int
-        return fn
-
-    def time_variant(label, src, key, call, out, want):
-        out.fill_(float("nan"))
-        chip_smoke.check(call() == 0, label, key, "launch")
-        torch.cuda.synchronize(dev)
-        chip_smoke.check(torch.equal(out, want), label, key, "differs from its plain version")
-        row = rows.setdefault(label, {"default": default_of(_build, src),
-                                      "floor_device_ms": floor})
-        row[key] = median_of([clock.device_ms(call, dev) for _ in range(3)])
-
-    for (src, v), lib in libs.items():
-        if src == "narrow_operands.cu":
-            fn = bind(lib, "speedy_narrow_operand_sum")
-            for shape, (a, b, c, amps) in lane1_blockspec_probe.inputs(dev).items():
-                want = kernels.narrow_operand_sum_reference(a, b, c, amps[0])
-                out = torch.empty_like(want)
-                B, R, C = a.shape
-                call = lambda: fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                                  B, R, C, amps[0], stream())
-                time_variant(f"narrow_operand_sum {[B, *shape]}", src, f"threads={v}", call,
-                             out, want)
-            continue
-        fn = bind(lib, "speedy_bisect_span_rows")
-        R, w_rows = bisect_kernel.CHECK_R, bisect_kernel.CHECK_W_ROWS
-        nvb, bases, q8k, x2 = bisect_kernel.inputs(R, w_rows, dev)
-        kw = dict(rows_per_block=R, w_rows=w_rows, nt=bisect_kernel.NT,
-                  length_rows=bisect_kernel.LENGTH_ROWS)
-        (B, NB), tot = bases.shape, R * bisect_kernel.NT
-        for mode in bisect_kernel.MODES:
-            index = (kernels.SPAN_ROWS_STAGES.index(mode) if mode in kernels.SPAN_ROWS_STAGES
-                     else 3)
-            want = kernels.bisect_span_rows_reference(nvb, bases, q8k, x2, mode, **kw)
-            out = torch.empty_like(want)
-            call = lambda: fn(nvb.data_ptr(), bases.data_ptr(), q8k.data_ptr(), x2.data_ptr(),
-                              out.data_ptr(), B, NB, tot, w_rows, bisect_kernel.LENGTH_ROWS,
-                              x2.shape[0], index, stream())
-            time_variant(f"bisect_span_rows {mode} R={R} w_rows={w_rows}", src,
-                         f"rows_per_warp={v}", call, out, want)
-    return rows
 
 
 SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -611,7 +502,6 @@ def measure(root: str) -> dict:
     out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
     probes, out["probe_digests"] = probe_rows(chip_smoke, kernels, dev)
     out.update(probes)
-    out["variants"] = variant_sweep(chip_smoke, kernels, _build, dev)
     out["direct_forms"] = direct_forms(
         chip_smoke, kernels, batch, _build,
         {"44.1kHz B=32": inputs["44.1kHz"], "47.3kHz B=2": short["47.3kHz B=2"]}, dev)

@@ -40,9 +40,9 @@
 //
 // Kernel 14 (bound 0.0007 ms at the experiment's R = 128, w_rows = 1,024,
 // under one launch): a warp per slab row, a thread on 4 consecutive lanes,
-// so a row is one 16-byte store a thread; a warp writes
-// kSpanRowsPerWarp rows, loads of all of them issued before any store,
-// over a grid of (row chunks, NB, B). dma and dot read whole x2 rows as
+// so a row is one 16-byte store a thread, eight rows to a block of threads,
+// over a grid of (row chunks, NB, B); two or four rows a warp measured
+// slower at every stage (PERF.md, PR 13). dma and dot read whole x2 rows as
 // 16-byte loads (the bounds test is per row). The shift needs only
 // q8k[i] and q8k[next(i)]: a walk wraps at most once, and
 // barrel_source_two_rows (barrel.cuh) finds its end in closed form, in
@@ -50,8 +50,9 @@
 // together, predicated, with no branch between them. On the card the
 // walk's integer operations set the shift's time more than its loads do
 // (a step-by-step walk with no loads took longer than the select with
-// its load), hence the closed form, a few operations a lane. Where x2 or out
-// is not 16-byte aligned the same kernel makes 4-byte accesses.
+// its load), hence the closed form, a few operations a lane. Where x2 is
+// not 16-byte aligned the same kernel makes 4-byte loads; out comes from
+// torch.empty, so its stores are always 16-byte.
 
 #include <cstdint>
 
@@ -102,30 +103,12 @@ gather_bisect_kernel(const float* __restrict__ x, const int* __restrict__ starts
   }
 }
 
-// Kernel 14's slab rows a warp writes; a block of threads writes kWarps
-// times as many. kernel_ab.py's variant_sweep builds this source with
-// other values to time them.
-#ifndef SPEEDY_SPAN_ROWS_PER_WARP
-#define SPEEDY_SPAN_ROWS_PER_WARP 1
-#endif
-constexpr int kSpanRowsPerWarp = SPEEDY_SPAN_ROWS_PER_WARP;
-constexpr int kSpanRowsPerBlock = kWarps * kSpanRowsPerWarp;
-
-// Four consecutive floats: one 16-byte access where the tensors allow it
+// Four consecutive floats of x2: one 16-byte load where x2 allows it
 // (kVec), else four 4-byte ones.
 template <bool kVec>
 __device__ __forceinline__ float4 load4(const float* __restrict__ p) {
   if (kVec) return __ldg(reinterpret_cast<const float4*>(p));
   return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  if (kVec) {
-    *reinterpret_cast<float4*>(p) = v;
-  } else {
-    p[0] = v.x, p[1] = v.y, p[2] = v.z, p[3] = v.w;
-  }
 }
 
 template <int Stage, bool kVec>
@@ -135,46 +118,32 @@ bisect_span_rows_kernel(const int* __restrict__ nvb, const int* __restrict__ bas
                         float* __restrict__ out, int tot, int w_rows, int length_rows,
                         int n_rows) {
   const int nb = blockIdx.y, b = blockIdx.z;
-  const int first = (blockIdx.x * kWarps + threadIdx.x / 32) * kSpanRowsPerWarp;
-  if (first >= tot) return;
-  const int l0 = threadIdx.x % 32 * 4;  // this thread's 4 lanes of each of its warp's rows
-  const int rows = min(kSpanRowsPerWarp, tot - first);
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;  // this warp's slab row
+  if (i >= tot) return;
+  const int l0 = threadIdx.x % 32 * 4;  // this thread's 4 lanes of the row
   const long long blk = (long long)b * gridDim.y + nb;
   const int* __restrict__ q = q8k + blk * tot;
-  float4 v[kSpanRowsPerWarp];
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (Stage == kNoCopy) {
-#pragma unroll
-    for (int r = 0; r < kSpanRowsPerWarp; ++r)
-      if (r < rows) {
-        const float f = (float)__ldg(q + first + r);
-        v[r] = make_float4(f, f, f, f);
-      }
-  } else if (nb >= nvb[b]) {
-#pragma unroll
-    for (int r = 0; r < kSpanRowsPerWarp; ++r) v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
+    const float f = (float)__ldg(q + i);
+    v = make_float4(f, f, f, f);
+  } else if (nb < nvb[b]) {
     const unsigned row0 = b * length_rows + bases[blk];
     // Whether span row `row`, x2's row g, is read: inside the span's
     // w_rows (else its one-hot row is empty) and inside x2 (else zeros).
     auto inside = [&](int row, unsigned g) {
       return (unsigned)row < (unsigned)w_rows && g < (unsigned)n_rows;
     };
-#pragma unroll
-    for (int r = 0; r < kSpanRowsPerWarp; ++r) {
-      if (r >= rows) continue;
-      const int i = first + r, qi = __ldg(q + i);
-      if (Stage == kCopy || Stage == kSelect) {
-        const int row = Stage == kCopy ? i : qi;
-        const unsigned g = row0 + row;
-        v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (inside(row, g)) v[r] = load4<kVec>(x2 + (size_t)g * kLanes + l0);
-        if (Stage == kCopy) {
-          const float f = (float)qi;
-          v[r] = make_float4(v[r].x * 1.f + f, v[r].y * 1.f + f, v[r].z * 1.f + f,
-                             v[r].w * 1.f + f);
-        }
-        continue;
+    const int qi = __ldg(q + i);
+    if (Stage == kCopy || Stage == kSelect) {
+      const int row = Stage == kCopy ? i : qi;
+      const unsigned g = row0 + row;
+      if (inside(row, g)) v = load4<kVec>(x2 + (size_t)g * kLanes + l0);
+      if (Stage == kCopy) {
+        const float f = (float)qi;
+        v = make_float4(v.x * 1.f + f, v.y * 1.f + f, v.z * 1.f + f, v.w * 1.f + f);
       }
+    } else {
       // The shift: each lane's walk from row i's and next(i)'s bits in
       // registers, then one load from the select row it ends on (span row
       // q8k[i], or q8k[next(i)] past the wrap), all four issued together.
@@ -189,19 +158,16 @@ bisect_span_rows_kernel(const int* __restrict__ nvb, const int* __restrict__ bas
         e[j] = (wrapped ? in_n : in_i) ? __ldg(x2 + (size_t)(wrapped ? gn : gi) * kLanes + lane)
                                        : 0.f;
       }
-      v[r] = make_float4(e[0], e[1], e[2], e[3]);
+      v = make_float4(e[0], e[1], e[2], e[3]);
     }
   }
-  float* o = out + (blk * tot + first) * kLanes + l0;
-#pragma unroll
-  for (int r = 0; r < kSpanRowsPerWarp; ++r)
-    if (r < rows) store4<kVec>(o + r * kLanes, v[r]);
+  *reinterpret_cast<float4*>(out + (blk * tot + i) * kLanes + l0) = v;
 }
 
 // The stages' instances, indexed by the C entry points' `stage`.
 const decltype(&gather_bisect_kernel<kCopy>) kGatherStages[] = {
     gather_bisect_kernel<kCopy>, gather_bisect_kernel<kSelect>, gather_bisect_kernel<kShift>};
-// Kernel 14's by [16-byte accesses][stage].
+// Kernel 14's by [16-byte loads][stage].
 const decltype(&bisect_span_rows_kernel<kCopy, true>) kSpanRowsStages[2][4] = {
     {bisect_span_rows_kernel<kCopy, false>, bisect_span_rows_kernel<kSelect, false>,
      bisect_span_rows_kernel<kShift, false>, bisect_span_rows_kernel<kNoCopy, false>},
@@ -234,7 +200,8 @@ extern "C" int speedy_gather_bisect(const float* x, const int* starts, const int
 
 // Kernel 14: nvb [B], bases [B, NB], q8k [B, NB, tot] int32, x2 [n_rows,
 // 128] -> out [B, NB, tot, 128] after `stage` (0 copy, 1 select, 2 shift,
-// 3 no copy). Needs B, NB <= 65535 and, for the copy, tot <= w_rows.
+// 3 no copy). Needs B, NB <= 65535, out 16-byte aligned (torch.empty's
+// is) and, for the copy, tot <= w_rows.
 // Returns a cudaError_t.
 extern "C" int speedy_bisect_span_rows(const int* nvb, const int* bases, const int* q8k,
                                        const float* x2, float* out, int B, int NB, int tot,
@@ -242,13 +209,13 @@ extern "C" int speedy_bisect_span_rows(const int* nvb, const int* bases, const i
                                        void* stream) {
   if (B <= 0 || NB <= 0 || tot <= 0) return cudaSuccess;
   if (stage < kCopy || stage > kNoCopy || B > 65535 || NB > 65535 ||
-      (stage == kCopy && tot > w_rows))
+      (stage == kCopy && tot > w_rows) || !aligned16(out))
     return cudaErrorInvalidValue;
   if (w_rows < 0) w_rows = 0;  // the kernel compares rows with them unsigned
   if (n_rows < 0) n_rows = 0;
-  const dim3 grid((tot + kSpanRowsPerBlock - 1) / kSpanRowsPerBlock, NB, B);
-  const bool vec = aligned16(x2) && aligned16(out);
-  kSpanRowsStages[vec][stage]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((tot + kWarps - 1) / kWarps, NB, B);
+  kSpanRowsStages[aligned16(x2)][stage]<<<grid, kThreads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
       nvb, bases, q8k, x2, out, tot, w_rows, length_rows, n_rows);
   return cudaGetLastError();
 }

@@ -32,12 +32,10 @@
 
 namespace {
 
-// Threads a block: kernel_ab.py's variant_sweep builds this source with
-// other values to time them.
-#ifndef SPEEDY_NARROW_THREADS
-#define SPEEDY_NARROW_THREADS 32
-#endif
-constexpr int kThreads = SPEEDY_NARROW_THREADS, kOut = 8;
+// Threads a block: 32 measured faster than 64, 128 or 256 in the
+// lane-dense layout, whose sectors then spread over more SMs (PERF.md,
+// PR 13).
+constexpr int kThreads = 32, kOut = 8;
 
 __global__ void __launch_bounds__(kThreads)
 narrow_kernel(const float* __restrict__ a, const float* __restrict__ b,
