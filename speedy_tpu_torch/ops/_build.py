@@ -26,6 +26,9 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
+
+from .. import trace
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -91,11 +94,16 @@ def _nvcc() -> str:
     return path
 
 
+def library_path() -> pathlib.Path:
+    """Where the library of this source hash lies, built or not."""
+    return BUILD_DIR / source_hash() / LIB_NAME
+
+
 def build() -> pathlib.Path:
     """Compile the kernels if this source hash has no library yet; returns
     the library's path."""
-    out_dir = BUILD_DIR / source_hash()
-    lib = out_dir / LIB_NAME
+    lib = library_path()
+    out_dir = lib.parent
     if lib.exists():
         return lib
     nvcc = _nvcc()
@@ -143,7 +151,11 @@ def _library() -> ctypes.CDLL:
 def load() -> dict:
     """Kernel name (the C entry point's without "speedy_") -> its ctypes
     function, argument and return types set: bound once, on first call,
-    so a launch looks its function up by name and builds nothing."""
+    so a launch looks its function up by name and builds nothing. Records
+    the call's host seconds, build included, in trace.LOAD_S and whether it
+    built the library in trace.LOAD_BUILT."""
+    t0 = time.perf_counter()
+    built = not library_path().exists()
     lib = _library()
     table = {}
     for name, argtypes in _SIGNATURES.items():
@@ -151,6 +163,7 @@ def load() -> dict:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         table[name[len("speedy_"):]] = fn
+    trace.LOAD_S, trace.LOAD_BUILT = time.perf_counter() - t0, built
     return table
 
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import config as C
+from .. import trace
 from ..config import SpeedyConfig
 from . import dft, filters, framing, hysteresis
 
@@ -108,6 +109,7 @@ def tension_chain(
     )
 
 
+@trace.traced("analysis")
 def analyze(
     x: torch.Tensor,
     cfg: SpeedyConfig,
@@ -140,7 +142,9 @@ def analyze(
             x.new_zeros(lead + (0,)),
         )
 
-    starts = torch.as_tensor(framing.frame_starts(cfg, T, integer_step), device=dev)
+    starts = trace.upload(
+        "frame_starts", framing.frame_starts(cfg, T, integer_step), device=dev
+    )
     frames = framing.extract_frames(x, starts, W)
     pre = framing.preemphasize(frames, framing.preemphasis_state(x, starts, W))
 
@@ -161,7 +165,7 @@ def analyze(
     # 40 dB bin mask (speedy.c:705-719); DC excluded from both max and sum.
     bin_thresh = torch.amax(cur[..., 1:], dim=-1, keepdim=True) / 100.0
     mask = (cur[..., 1:] > bin_thresh) & (last[..., 1:] > bin_thresh)
-    eps = torch.tensor(C.EPS, dtype=dt, device=dev)
+    eps = trace.upload("eps", C.EPS, dtype=dt, device=dev)
     log_ratio = torch.abs(
         torch.log((normalized[..., 1:] + eps) / (normalized_last[..., 1:] + eps))
     )

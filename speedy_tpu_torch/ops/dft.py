@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SpeedyConfig
 
 
@@ -56,9 +57,10 @@ def magnitude_spectrogram(frames: torch.Tensor, cfg: SpeedyConfig) -> torch.Tens
     (speedy.c:438-454)."""
     dt, dev = frames.dtype, frames.device
     name = str(dt).removeprefix("torch.")
-    win = torch.as_tensor(hamming_window(cfg.window_size, name), device=dev)
+    win = trace.upload("dft_tables", hamming_window(cfg.window_size, name), device=dev)
     cos_m, sin_m = (
-        torch.as_tensor(m, device=dev) for m in dft_matrices(cfg.window_size, name)
+        trace.upload("dft_tables", m, device=dev)
+        for m in dft_matrices(cfg.window_size, name)
     )
     fw = frames * win
     re = torch.matmul(fw, cos_m)

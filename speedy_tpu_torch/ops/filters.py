@@ -25,6 +25,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
+
 _CHUNK = 64
 
 
@@ -57,10 +59,10 @@ def first_order_lowpass(
     nC = -(-T // _CHUNK)
     dt, dev = x.dtype, x.device
     within, lead, across, init = (
-        torch.as_tensor(m, dtype=dt, device=dev)
+        trace.upload("lpf_tables", m, dtype=dt, device=dev)
         for m in _power_matrices(float(alpha), nC)
     )
-    a = torch.tensor(alpha, dtype=dt, device=dev)
+    a = trace.upload("lpf_alpha", alpha, dtype=dt, device=dev)
     b = (1.0 - a) * x
     if nC * _CHUNK != T:
         b = torch.cat([b, b.new_zeros(B, nC * _CHUNK - T)], dim=1)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import PREEMPHASIS_COEF, SpeedyConfig
 
 
@@ -52,5 +53,6 @@ def preemphasize(frames: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     with the carried state [..., T] as x[-1] (filter([1 -0.97], 1, x),
     speedy.c:416-425)."""
     prev = torch.cat([state[..., None], frames[..., :-1]], dim=-1)
-    coef = torch.tensor(PREEMPHASIS_COEF, dtype=frames.dtype, device=frames.device)
+    coef = trace.upload("preemphasis_coef", PREEMPHASIS_COEF, dtype=frames.dtype,
+                        device=frames.device)
     return frames - coef * prev

@@ -4,7 +4,8 @@ speedy_tpu/ops/speed.py).
 Scalars enter the arithmetic as 0-dim float32 tensors, so every step runs
 the same float32 operations as the JAX package (a Python float would be
 combined in float64 first); branches are taken on the Python values, so
-nothing waits for the device. The sequential law's frame loop is
+nothing is read back from the device (the scalars' uploads are counted as
+syncs, trace.upload). The sequential law's frame loop is
 kernels.speed_law on the card (csrc/speed_law.cu, the same operations in
 the same order) and kernels.speed_law_reference, a loop of speed_law_step,
 as its plain version.
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import config as C
+from .. import trace
 from . import kernels
 
 
@@ -31,7 +33,7 @@ class _Law(NamedTuple):
 
 
 def _law(like: torch.Tensor, global_rate, fb, nl) -> _Law:
-    f = lambda v: torch.tensor(v, dtype=like.dtype, device=like.device)
+    f = lambda v: trace.upload("law_scalars", v, dtype=like.dtype, device=like.device)
     return _Law(
         float(global_rate) > 1.0, float(fb) > 0.0, f(global_rate), f(fb),
         f(nl), f(C.MIN_SPEED), f(1.0 / C.FRAME_RATE_HZ),
@@ -71,6 +73,7 @@ def speed_law_step(law: _Law, cur, des, t):
     return cur, des, _interpolate(law, requested)
 
 
+@trace.traced("speed_law")
 def speed_from_tension(
     tension: torch.Tensor,
     global_rate: float,
@@ -92,6 +95,7 @@ def speed_from_tension(
                nonlinear_factor, initial_durations)
 
 
+@trace.traced("speed_law")
 def speed_from_tension_parallel(
     tension: torch.Tensor,
     global_rate: float,

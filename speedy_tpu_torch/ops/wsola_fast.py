@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SpeedyConfig
 from . import kernels
 from .dft import no_tf32
@@ -170,7 +171,7 @@ def grid_positions(
     lens_f = input_lengths.to(dt)
 
     # ---- 1. time map ----
-    inv_s = torch.tensor(float(frame_step), dtype=dt, device=dev) / speeds
+    inv_s = trace.upload("frame_step", float(frame_step), dtype=dt, device=dev) / speeds
     obnd = torch.cat([inv_s.new_zeros(B, 1), torch.cumsum(inv_s, dim=1)], dim=1)
     total_frames = torch.clamp(lens // frame_step, 0, n_frames)
     tail = (lens - total_frames * frame_step).to(dt)
@@ -359,6 +360,7 @@ def _synth_spans(
     return _overlap_add(wide, a_f, win, valid, hop, capacity)
 
 
+@trace.traced("grid_engine")
 def time_scale_grid(
     x,
     speeds,
@@ -386,7 +388,7 @@ def time_scale_grid(
     dev = kernels.resolve_device(device)
     if dev.type == "cuda":
         no_tf32()
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    x = trace.upload("grid_input", x, dtype=torch.float32, device=dev).contiguous()
     L = x.shape[-1]
     if input_length is None:
         input_length = L
@@ -395,16 +397,16 @@ def time_scale_grid(
         cap, K = capacity, capacity // h + 1
     res = wsola_grid_batch(
         x[None, :],
-        torch.tensor([input_length], dtype=torch.int32, device=dev),
-        torch.as_tensor(speeds, dtype=torch.float32, device=dev).reshape(1, -1),
+        trace.upload("input_length", [input_length], dtype=torch.int32, device=dev),
+        trace.upload("grid_speeds", speeds, dtype=torch.float32, device=dev).reshape(1, -1),
         cfg.wsola_min_period,
         cfg.wsola_max_period,
         cfg.frame_step_int,
         h,
         cap,
         K,
-        torch.as_tensor(_cola_hann(2 * h), device=dev),
-        tuple(torch.as_tensor(m, device=dev) for m in pitch_corr_matrices(cfg)),
+        trace.upload("cola", _cola_hann(2 * h), device=dev),
+        tuple(trace.upload("pitch_tables", m, device=dev) for m in pitch_corr_matrices(cfg)),
         max_speed_plan=max_speed_bound,
         period_grid=None if period_grid is None else period_grid.reshape(1, -1),
         reference=reference,

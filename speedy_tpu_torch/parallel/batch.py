@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from .. import config as C
+from .. import trace
 from ..config import SpeedyConfig
 from ..ops import analysis, analysis_fft, dft, kernels, wsola, wsola_fast
 from ..ops.dft import no_tf32
@@ -57,16 +58,18 @@ def build_tables(cfg: SpeedyConfig) -> Dict[str, np.ndarray]:
 
 
 def device_tables(cfg: SpeedyConfig, device) -> Dict[str, torch.Tensor]:
-    """build_tables on `device`, with kernel 1's FFT tables beside them."""
+    """build_tables on `device`, with kernel 1's FFT tables beside them
+    (a step given no tables builds them: nine uploads)."""
     tables = {
-        k: torch.as_tensor(v, device=device) for k, v in build_tables(cfg).items()
+        k: trace.upload("tables", v, device=device) for k, v in build_tables(cfg).items()
     }
-    tables["analysis_fft"] = torch.tensor(
-        analysis_fft.packed_table(cfg.window_size), device=device
+    tables["analysis_fft"] = trace.upload(
+        "tables", analysis_fft.packed_table(cfg.window_size), device=device
     )
     return tables
 
 
+@trace.traced("analysis")
 def batched_analysis(
     xs: torch.Tensor,
     cfg: SpeedyConfig,
@@ -153,6 +156,7 @@ def grid_output_capacity(
     return gcap
 
 
+@trace.traced("batch")
 def batched_nonlinear_speedup(
     xs: torch.Tensor,
     lengths: torch.Tensor,
@@ -210,7 +214,7 @@ def batched_nonlinear_speedup(
             reference=reference,
         )
 
-    lengths = lengths.to(device=dev, dtype=torch.int64)
+    lengths = trace.upload("lengths", lengths, dtype=torch.int64, device=dev)
     valid_frames = torch.where(
         lengths >= W, (lengths - W) // step + 1, torch.zeros_like(lengths)
     )
@@ -219,7 +223,7 @@ def batched_nonlinear_speedup(
     )
     speeds = _mask_speeds(speeds, valid_tension)
     # Utterances too short for any tension frame run at the global speed.
-    rg = torch.tensor(float(global_speed), dtype=dt, device=dev)
+    rg = trace.upload("rg", float(global_speed), dtype=dt, device=dev)
     speeds = torch.where((valid_tension > 0)[:, None], speeds, rg)
     # The planner sizes capacity by min_speed_bound, so speeds are floored
     # there (a no-op for speed-ups, where the law guarantees >= 1).
@@ -235,12 +239,13 @@ def batched_nonlinear_speedup(
         if tight < gcap:
             gcap, K = tight, tight // hop + 1
     corr = tuple(tables[k] for k in ("pitch_ea", "pitch_es", "pitch_inv", "pitch_band"))
-    out = wsola_fast.wsola_grid_batch(
-        xs, lengths.to(torch.int32), speeds, minp, maxp, step, hop, gcap, K,
-        tables["cola"], corr,
-        max_speed_plan=_plan_max_speed(global_speed, nonlinear_factor),
-        gain=gain, period_grid=period_grid, reference=reference,
-    )
+    with trace.layer("grid_engine"):
+        out = wsola_fast.wsola_grid_batch(
+            xs, lengths.to(torch.int32), speeds, minp, maxp, step, hop, gcap, K,
+            tables["cola"], corr,
+            max_speed_plan=_plan_max_speed(global_speed, nonlinear_factor),
+            gain=gain, period_grid=period_grid, reference=reference,
+        )
     return BatchResult(out.output, out.valid_length, tension, speeds)
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import config as C
+from . import trace
 from .config import SpeedyConfig
 from .ops.analysis import analyze
 from .ops.kernels import resolve_device
@@ -61,15 +62,26 @@ def _as_float(x: np.ndarray) -> np.ndarray:
     return x.astype(np.float32)
 
 
+@trace.traced("input")
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """x as float32 on device (_as_float, then one pageable copy)."""
+    return trace.upload("input", _as_float(x), device=device)
+
+
+@trace.traced("read-back")
 def _result(x: np.ndarray, out, tension, speeds) -> SpeedupResult:
-    """Trim to valid_length, read back, and round to int16 for int16 input."""
-    n = int(out.valid_length)
-    y = out.output[:n].cpu().numpy()
+    """Trim to valid_length, read back, and round to int16 for int16 input.
+    tension None (the --linear path has none) reads back as empty."""
+    n = trace.read_back("valid_length", out.valid_length, int)
+    y = trace.read_back("out", out.output[:n]).numpy()
     if x.dtype == np.int16:
         y = np.clip(np.round(y * 32768.0), -32768, 32767).astype(np.int16)
-    return SpeedupResult(
-        y, tension.cpu().numpy(), speeds.cpu().numpy(), float(len(x)) / max(n, 1)
-    )
+    if tension is None:
+        t = np.zeros(0, np.float32)
+    else:
+        t = trace.read_back("tension", tension).numpy()
+    s = trace.read_back("speeds", speeds).numpy()
+    return SpeedupResult(y, t, s, float(len(x)) / max(n, 1))
 
 
 def nonlinear_speedup(
@@ -102,23 +114,26 @@ def nonlinear_speedup(
         return linear_time_scale(
             x, cfg, global_speed, engine=engine, device=device, reference=reference
         )
-    xf = torch.as_tensor(_as_float(x), device=device)
-    tension = analyze(xf, cfg, integer_step=True).tension
-    if tension.shape[0] == 0:
-        speeds = torch.tensor([global_speed], dtype=torch.float32, device=xf.device)
-    else:
-        speeds = speed_from_tension(
-            tension[None], global_speed, duration_feedback_strength, nonlinear_factor,
+    with trace.layer("file"):
+        xf = _upload(x, device)
+        tension = analyze(xf, cfg, integer_step=True).tension
+        if tension.shape[0] == 0:
+            speeds = trace.upload("speed", [global_speed], dtype=torch.float32,
+                                  device=xf.device)
+        else:
+            speeds = speed_from_tension(
+                tension[None], global_speed, duration_feedback_strength, nonlinear_factor,
+                reference=reference,
+            )[0][0]
+        if min_speed_bound is None:
+            # The speeds are known: plan the buffers from them (one read-back).
+            least = trace.read_back("speeds_min", speeds.min(), float)
+            min_speed_bound = max(C.MIN_SPEED, least * 0.999)
+        out = time_scale_grid(
+            xf, speeds, cfg, min_speed_bound=min_speed_bound, device=device,
             reference=reference,
-        )[0][0]
-    if min_speed_bound is None:
-        # The speeds are known: plan the buffers from them (one read-back).
-        min_speed_bound = max(C.MIN_SPEED, float(speeds.min()) * 0.999)
-    out = time_scale_grid(
-        xf, speeds, cfg, min_speed_bound=min_speed_bound, device=device,
-        reference=reference,
-    )
-    return _result(x, out, tension, speeds)
+        )
+        return _result(x, out, tension, speeds)
 
 
 def linear_time_scale(
@@ -135,10 +150,11 @@ def linear_time_scale(
     check_engine(engine)
     device = resolve_device(device)
     x = np.asarray(x)
-    xf = torch.as_tensor(_as_float(x), device=device)
-    speeds = torch.tensor([speed], dtype=torch.float32, device=xf.device)
-    out = time_scale_grid(
-        xf, speeds, cfg, min_speed_bound=max(C.MIN_SPEED, speed * 0.999),
-        device=device, reference=reference,
-    )
-    return _result(x, out, torch.zeros(0), speeds)
+    with trace.layer("file"):
+        xf = _upload(x, device)
+        speeds = trace.upload("speed", [speed], dtype=torch.float32, device=xf.device)
+        out = time_scale_grid(
+            xf, speeds, cfg, min_speed_bound=max(C.MIN_SPEED, speed * 0.999),
+            device=device, reference=reference,
+        )
+        return _result(x, out, None, speeds)
