@@ -14,6 +14,7 @@ frames:
                    (one product with an [nC, nC] matrix).
 
 Powers are taken in float64 and cast once; everything else is float32.
+The tables and α go to the device once per (α, nC) (trace.upload_once).
 Summation order differs from the scan, so results agree to float32
 round-off (held to the 2e-5 tension gate in tests/test_torch_frontend.py).
 """
@@ -58,11 +59,12 @@ def first_order_lowpass(
     B = x.shape[0]
     nC = -(-T // _CHUNK)
     dt, dev = x.dtype, x.device
+    key = (float(alpha), nC)
     within, lead, across, init = (
-        trace.upload("lpf_tables", m, dtype=dt, device=dev)
-        for m in _power_matrices(float(alpha), nC)
+        trace.upload_once("lpf_tables", m, dt, dev, key=key + (i,))
+        for i, m in enumerate(_power_matrices(*key))
     )
-    a = trace.upload("lpf_alpha", alpha, dtype=dt, device=dev)
+    a = trace.upload_once("lpf_alpha", float(alpha), dt, dev)
     b = (1.0 - a) * x
     if nC * _CHUNK != T:
         b = torch.cat([b, b.new_zeros(B, nC * _CHUNK - T)], dim=1)

@@ -4,11 +4,12 @@ speedy_tpu/ops/speed.py).
 Scalars enter the arithmetic as 0-dim float32 tensors, so every step runs
 the same float32 operations as the JAX package (a Python float would be
 combined in float64 first); branches are taken on the Python values, so
-nothing is read back from the device (the scalars' uploads are counted as
-syncs, trace.upload). The sequential law's frame loop is
-kernels.speed_law on the card (csrc/speed_law.cu, the same operations in
-the same order) and kernels.speed_law_reference, a loop of speed_law_step,
-as its plain version.
+nothing is read back from the device. Each scalar is uploaded once per
+value, dtype and device (trace.upload_once) and held there, so only the
+first call with a value waits for the stream. The sequential law's frame
+loop is kernels.speed_law on the card (csrc/speed_law.cu, the same
+operations in the same order) and kernels.speed_law_reference, a loop of
+speed_law_step, as its plain version.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class _Law(NamedTuple):
 
 
 def _law(like: torch.Tensor, global_rate, fb, nl) -> _Law:
-    f = lambda v: trace.upload("law_scalars", v, dtype=like.dtype, device=like.device)
+    f = lambda v: trace.upload_once("law_scalars", float(v), like.dtype, like.device)
     return _Law(
         float(global_rate) > 1.0, float(fb) > 0.0, f(global_rate), f(fb),
         f(nl), f(C.MIN_SPEED), f(1.0 / C.FRAME_RATE_HZ),

@@ -171,7 +171,7 @@ def grid_positions(
     lens_f = input_lengths.to(dt)
 
     # ---- 1. time map ----
-    inv_s = trace.upload("frame_step", float(frame_step), dtype=dt, device=dev) / speeds
+    inv_s = trace.upload_once("frame_step", float(frame_step), dt, dev) / speeds
     obnd = torch.cat([inv_s.new_zeros(B, 1), torch.cumsum(inv_s, dim=1)], dim=1)
     total_frames = torch.clamp(lens // frame_step, 0, n_frames)
     tail = (lens - total_frames * frame_step).to(dt)

@@ -223,7 +223,7 @@ def batched_nonlinear_speedup(
     )
     speeds = _mask_speeds(speeds, valid_tension)
     # Utterances too short for any tension frame run at the global speed.
-    rg = trace.upload("rg", float(global_speed), dtype=dt, device=dev)
+    rg = trace.upload_once("rg", float(global_speed), dt, dev)
     speeds = torch.where((valid_tension > 0)[:, None], speeds, rg)
     # The planner sizes capacity by min_speed_bound, so speeds are floored
     # there (a no-op for speed-ups, where the law guarantees >= 1).
