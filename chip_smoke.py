@@ -1638,6 +1638,9 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     check(only(launches, BATCH_KERNELS), "main path skipped a kernel or left its route",
           launches)
+    bodies = dict(kernels.BODIES)
+    check(bodies == {"analysis_energy_lsd:fft": 1}, "16 kHz kernel 1 left its FFT body",
+          bodies)
     capacity = res.output.shape[1]
     check(capacity == batch.grid_output_capacity(cfg16, L, rate, cap_factor), "capacity")
     max_valid = int(res.valid_length.max())
@@ -1666,7 +1669,7 @@ def main() -> int:
     layers = layer_times(batch, kernels, engine, xs16, lengths, gain16, cfg16, rate)
     busy_ms, n_launches, top = device_profile(lambda: engine(xs16, lengths, gain16))
     emit("main_path", B=B, L=L, sample_rate=16000, rate=rate, capacity=capacity,
-         max_valid=max_valid, launches=launches, checksum=checksum,
+         max_valid=max_valid, launches=launches, bodies=bodies, checksum=checksum,
          step_ms_median=step_s * 1e3, steps_timed=len(timed),
          step_ms_window_medians=[statistics.median(s) * 1e3 for s in windows[1:]],
          step_ms_min=min(timed) * 1e3, step_ms_max=max(timed) * 1e3,
@@ -1710,6 +1713,9 @@ def main() -> int:
     lengths44 = torch.full((B44,), L44, dtype=torch.int32, device=dev)
     l44, res44 = path_launches(kernels, lambda: engine44(xs44, lengths44, gain44))
     check(only(l44, BATCH_KERNELS), "44.1 kHz batch skipped a kernel or left its route", l44)
+    bodies44 = dict(kernels.BODIES)
+    check(bodies44 == {"analysis_energy_lsd:direct": 1}, "44.1 kHz kernel 1 left its direct body",
+          bodies44)
     cap44 = res44.output.shape[1]
     check(cap44 == batch.grid_output_capacity(cfg44, L44, rate, cap_factor), "44.1 kHz capacity")
     check(int(res44.valid_length.max()) < cap44, "44.1 kHz truncated output")
@@ -1727,6 +1733,7 @@ def main() -> int:
     step44 = host_ms(lambda: engine44(xs44, lengths44, gain44))
     busy44, n44, top44 = device_profile(lambda: engine44(xs44, lengths44, gain44))
     emit("batch", case=f"44.1kHz B={B44} L={L44} {rate}x cap {cap_factor}", launches=l44,
+         bodies=bodies44,
          capacity=cap44, max_valid=int(res44.valid_length.max()),
          checksum=float(res44.output.double().sum()), step_ms_host_median=step44,
          audio_s_per_s=B44 * L44 / 44100 / (step44 / 1e3), device_busy_ms=busy44,

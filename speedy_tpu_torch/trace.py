@@ -27,10 +27,14 @@ HELD_MAX_BYTES in all, dropping the least recently used; clear_held()
 drops them all.
 
 LAUNCHES counts the port's own kernel launches (ops/kernels.py adds to it;
-PyTorch's kernels are not in it). LOAD_S is the host seconds of
+PyTorch's kernels are not in it). BODIES splits a kernel's launches by the
+body its plan picked, as "<kernel>:<body>": kernel 1's are
+"analysis_energy_lsd:fft" and "analysis_energy_lsd:direct", and while a
+profiler records each of its launches runs inside a
+"speedy:analysis_kernel:<body>" span. LOAD_S is the host seconds of
 ops/_build.load()'s one call, LOAD_BUILT whether that call compiled the
 kernels (False: it found them built). reset() zeroes the counts, HITS
-among them, and leaves the held constants.
+and BODIES among them, and leaves the held constants.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ LAUNCHES: Dict[str, int] = {
     "lane_roll": 0, "transpose_cols": 0, "gather_bisect": 0, "synth_bisect": 0,
     "bisect_span_rows": 0, "speed_law": 0, "speed_law_division_check": 0,
 }
+# Launches since the last reset, by kernel and the body its plan picked.
+BODIES: Dict[str, int] = {}
 # Host-blocking transfers and their bytes since the last reset, by site.
 SYNCS: Dict[str, int] = {}
 SYNC_BYTES: Dict[str, int] = {}
@@ -167,9 +173,10 @@ def clear_held() -> None:
 
 
 def reset() -> None:
-    """Zero LAUNCHES and empty SYNCS, SYNC_BYTES and HITS."""
+    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES and HITS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BODIES.clear()
     SYNCS.clear()
     SYNC_BYTES.clear()
     HITS.clear()
