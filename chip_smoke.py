@@ -114,6 +114,8 @@ PROBE_ORACLES = {"gather_bisect": ("gather_rows_block",)}
 # (linear_time_scale and time_scale_grid run no speed law).
 BATCH_KERNELS = ("analysis_energy_lsd", "pitch_ssd", "gather_synth")
 SLOW_BATCH_KERNELS = (*BATCH_KERNELS, "speed_law")
+# The engine's CUDA graphs of its op chains (parallel/graphs.py).
+GRAPH_CHAINS = ("tension", "law", "grid")
 SINGLE_KERNELS = ("pitch_ssd", "gather_rows", "speed_law")
 SINGLE_ENGINE_KERNELS = ("pitch_ssd", "gather_rows")
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s,
@@ -1318,6 +1320,32 @@ def only(launches, names) -> bool:
     return all((launches[k] > 0) == (k in names) for k in launches)
 
 
+def graphed_step(kernels, trace, engine, args, eager, label):
+    """The engine's third step on args, after its eager first step
+    (eager: that step's launch counts, body counts and result) and the
+    second, which captures the graphs: the step replays the three graphs,
+    captures none, syncs nothing, launches what the eager step launched,
+    and gives its result bitwise. Returns the result and trace.GRAPHS."""
+    import torch
+
+    engine(*args)
+    torch.cuda.synchronize()
+    trace.reset()
+    res = engine(*args)
+    torch.cuda.synchronize()
+    graphs = dict(trace.GRAPHS)
+    launches, bodies, want = eager
+    check(graphs == {f"{c}:replay": 1 for c in GRAPH_CHAINS}, label,
+          "a warm step left its three graphs", graphs)
+    check(not trace.SYNCS, label, "a warm step synced", trace.SYNCS)
+    check(dict(kernels.LAUNCHES) == launches and dict(kernels.BODIES) == bodies, label,
+          "the graphed step launched other kernels than the eager one",
+          kernels.LAUNCHES, kernels.BODIES)
+    check(all(torch.equal(a, b) for a, b in zip(res, want)), label,
+          "the graphed step differs from the eager one")
+    return res, graphs
+
+
 def path_launches(kernels, run):
     """run() with every launch count set to 0 just before; the counts just
     after, and run()'s result."""
@@ -1529,7 +1557,7 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no speedy_tpu_torch package", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline
+    from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, pipeline, trace
     from speedy_tpu_torch.io import wave
     from speedy_tpu_torch.ops import _build, analysis_fft, kernels, synth_model, wsola_fast
     from speedy_tpu_torch.parallel import batch
@@ -1641,6 +1669,10 @@ def main() -> int:
     bodies = dict(kernels.BODIES)
     check(bodies == {"analysis_energy_lsd:fft": 1}, "16 kHz kernel 1 left its FFT body",
           bodies)
+    # Every later step replays the engine's graphs: the checks below hold
+    # a replayed step.
+    res, graphs = graphed_step(kernels, trace, engine, (xs16, lengths, gain16),
+                               (launches, bodies, res), "main path")
     capacity = res.output.shape[1]
     check(capacity == batch.grid_output_capacity(cfg16, L, rate, cap_factor), "capacity")
     max_valid = int(res.valid_length.max())
@@ -1669,7 +1701,8 @@ def main() -> int:
     layers = layer_times(batch, kernels, engine, xs16, lengths, gain16, cfg16, rate)
     busy_ms, n_launches, top = device_profile(lambda: engine(xs16, lengths, gain16))
     emit("main_path", B=B, L=L, sample_rate=16000, rate=rate, capacity=capacity,
-         max_valid=max_valid, launches=launches, bodies=bodies, checksum=checksum,
+         max_valid=max_valid, launches=launches, bodies=bodies, graphs=graphs,
+         checksum=checksum,
          step_ms_median=step_s * 1e3, steps_timed=len(timed),
          step_ms_window_medians=[statistics.median(s) * 1e3 for s in windows[1:]],
          step_ms_min=min(timed) * 1e3, step_ms_max=max(timed) * 1e3,
@@ -1716,6 +1749,8 @@ def main() -> int:
     bodies44 = dict(kernels.BODIES)
     check(bodies44 == {"analysis_energy_lsd:direct": 1}, "44.1 kHz kernel 1 left its direct body",
           bodies44)
+    res44, graphs44 = graphed_step(kernels, trace, engine44, (xs44, lengths44, gain44),
+                                   (l44, bodies44, res44), "44.1 kHz batch")
     cap44 = res44.output.shape[1]
     check(cap44 == batch.grid_output_capacity(cfg44, L44, rate, cap_factor), "44.1 kHz capacity")
     check(int(res44.valid_length.max()) < cap44, "44.1 kHz truncated output")
@@ -1733,7 +1768,7 @@ def main() -> int:
     step44 = host_ms(lambda: engine44(xs44, lengths44, gain44))
     busy44, n44, top44 = device_profile(lambda: engine44(xs44, lengths44, gain44))
     emit("batch", case=f"44.1kHz B={B44} L={L44} {rate}x cap {cap_factor}", launches=l44,
-         bodies=bodies44,
+         bodies=bodies44, graphs=graphs44,
          capacity=cap44, max_valid=int(res44.valid_length.max()),
          checksum=float(res44.output.double().sum()), step_ms_host_median=step44,
          audio_s_per_s=B44 * L44 / 44100 / (step44 / 1e3), device_busy_ms=busy44,
@@ -1867,9 +1902,12 @@ def device_profile(fn):
     """Device time of one call of fn under torch.profiler: the summed
     kernel time in ms, the number of device kernels, and the eight largest
     kernels by time; (None, 0, []) when the profiler saw no device work
-    (not measured)."""
+    (not measured). The program's "speedy:" ranges, which the profiler
+    also puts on the device's timeline, are not device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from speedy_tpu_torch import trace
 
     fn()
     torch.cuda.synchronize()
@@ -1880,7 +1918,8 @@ def device_profile(fn):
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(trace.PREFIX)]
         if events:
             break
     if not events:

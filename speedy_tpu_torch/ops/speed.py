@@ -14,7 +14,7 @@ speed_law_step, as its plain version.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -103,6 +103,7 @@ def speed_from_tension_parallel(
     duration_feedback_strength: float = 0.0,
     nonlinear_factor: float = 1.0,
     num_iters: int = 8,
+    run_chain: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Parallel fixed-point solver for the law, tension [B, T] -> speeds.
 
@@ -115,9 +116,22 @@ def speed_from_tension_parallel(
     VALID ONLY FOR global_rate > 1: at sub-unity rates the kMinimumSpeed
     clamp makes the iteration expand (speedy_tpu/ops/speed.py:111-113);
     callers use speed_from_tension there.
+
+    run_chain(fn, *inputs, static=...) runs the law, fn(tension), in the
+    caller's stead: the batch engine replays it as a CUDA graph
+    (parallel/graphs.py), and the speeds are then the graph's output,
+    which its next replay overwrites.
     """
     if not float(global_rate) > 1.0:
         raise ValueError("the parallel speed law needs global_rate > 1")
+    args = (global_rate, duration_feedback_strength, nonlinear_factor, num_iters)
+    if run_chain is None:
+        return _parallel_law(tension, *args)
+    return run_chain(lambda t: _parallel_law(t, *args), tension, static=args)
+
+
+def _parallel_law(tension, global_rate, duration_feedback_strength, nonlinear_factor,
+                  num_iters):
     law = _law(tension, global_rate, duration_feedback_strength, nonlinear_factor)
     base = _base_speed(law, tension)
     fd = law.frame_duration

@@ -27,7 +27,7 @@ tables (tests/test_torch_config.py).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -219,6 +219,7 @@ def wsola_grid_batch(
     gain: Optional[torch.Tensor] = None,
     period_grid: Optional[torch.Tensor] = None,
     reference: bool = False,
+    run_chain: Optional[Callable] = None,
 ) -> WsolaResult:
     """xs [B, L] float32, input_lengths [B], speeds [B, F] -> WsolaResult
     with output [B, capacity] and valid_length [B] (speedy_tpu's
@@ -231,7 +232,10 @@ def wsola_grid_batch(
     period_grid [B, n_grid] (optional) replaces the pitch search; it must
     come from this G over the same xs. reference=True runs the kernels'
     plain versions on any device (for holding the kernels against them on
-    the card).
+    the card). run_chain(fn, *inputs, static=...) runs stages 1 and 3 up
+    to the chunks' positions, fn(input_lengths, speeds, period_grid), in
+    the caller's stead: the batch engine replays them as a CUDA graph
+    (parallel/graphs.py).
     """
     B, L = xs.shape
     dt, dev = xs.dtype, xs.device
@@ -247,24 +251,38 @@ def wsola_grid_batch(
         period_grid = pitch(xs, g, taps, minp, maxp, G, n_grid, corr_mats)
 
     # ---- 1 and 3. time map, phase snap ----
+    plan = (frame_step, hop, G, capacity, num_chunks, max_speed_plan, dt)
+    if run_chain is None:
+        a_i, a_f, valid = _chunk_positions(input_lengths, speeds, period_grid, *plan)
+    else:
+        a_i, a_f, valid = run_chain(
+            lambda *t: _chunk_positions(*t, *plan), input_lengths, speeds, period_grid,
+            static=plan)
+        valid = valid.clone()
+
+    # ---- 4. synthesis ----
+    if max_speed_plan is None:
+        out = _synth_per_row(
+            xs, a_i, a_f, cola, gain, valid, hop, capacity, maxp, reference
+        )
+    else:
+        synth = kernels.gather_synth_reference if reference else kernels.gather_synth
+        out = synth(xs, a_i, a_f, cola, g, valid, hop, capacity)
+    return WsolaResult(
+        out, valid, torch.full((B,), num_chunks, dtype=torch.int32, device=dev)
+    )
+
+
+def _chunk_positions(input_lengths, speeds, period_grid, frame_step, hop, G, capacity,
+                     num_chunks, max_speed_plan, dt):
+    """Stages 1 and 3 of wsola_grid_batch: each chunk's integer and
+    fractional source position (a_i, a_f) and the valid output length."""
     pos = grid_positions(
         input_lengths, speeds, period_grid, frame_step, hop, G, capacity,
         num_chunks, max_speed_plan,
     )
-
-    # ---- 4. synthesis ----
     a_i = torch.floor(pos.a).to(torch.int32)
-    a_f = pos.a - a_i.to(dt)
-    if max_speed_plan is None:
-        out = _synth_per_row(
-            xs, a_i, a_f, cola, gain, pos.valid, hop, capacity, maxp, reference
-        )
-    else:
-        synth = kernels.gather_synth_reference if reference else kernels.gather_synth
-        out = synth(xs, a_i, a_f, cola, g, pos.valid, hop, capacity)
-    return WsolaResult(
-        out, pos.valid, torch.full((B,), num_chunks, dtype=torch.int32, device=dev)
-    )
+    return a_i, pos.a - a_i.to(dt), pos.valid
 
 
 def _synth_source(xs, gain, valid, hop, num_chunks, max_period):

@@ -11,6 +11,10 @@ On a CUDA device batched_nonlinear_speedup switches TF32 off for matmuls
 and cuDNN (no_tf32), so every float32 product runs in full float32: the
 TPU pitch path needed full float32, and the analysis here is at least as
 precise as the TPU's bf16x3.
+
+SpeedupEngine runs the PyTorch op chains between the kernels as CUDA
+graphs on the card (parallel/graphs.py); batched_nonlinear_speedup runs
+them eagerly unless it is given the engine's graphs.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..config import SpeedyConfig
 from ..ops import analysis, analysis_fft, dft, kernels, wsola, wsola_fast
 from ..ops.dft import no_tf32
 from ..ops.speed import speed_from_tension, speed_from_tension_parallel
+from .graphs import StepGraphs
 
 TABLE_NAMES = (
     "hamming", "dft_cos", "dft_sin", "cola",
@@ -77,6 +82,7 @@ def batched_analysis(
     gain: Optional[torch.Tensor] = None,
     tables: Optional[Dict[str, torch.Tensor]] = None,
     reference: bool = False,
+    graphs: Optional[StepGraphs] = None,
 ) -> torch.Tensor:
     """Batched front-end: xs [B, L] -> tension [B, T_out].
 
@@ -85,7 +91,9 @@ def batched_analysis(
     LPF, √min(2,·), tapered-max hysteresis, the skip gate, the second LPF
     and tension (speedy_tpu/parallel/batch.py:205-270). gain [B] scales each
     utterance after the Hamming window. reference=True uses the kernel's
-    plain version on any device.
+    plain version on any device. graphs: the engine's StepGraphs, which
+    runs the chain after the kernel as its "tension" graph; the tension
+    returned is that graph's output, which its next replay overwrites.
     """
     B, L = xs.shape
     dt, dev = xs.dtype, xs.device
@@ -103,7 +111,13 @@ def batched_analysis(
         xs, g, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
         tables["analysis_fft"], T, cfg.frame_step_int,
     )
-    return analysis.tension_chain(energy, lsd_full[:, :T_out], cfg, T_out).tension
+
+    def chain(energy, lsd_full):
+        return analysis.tension_chain(energy, lsd_full[:, :T_out], cfg, T_out).tension
+
+    if graphs is None:
+        return chain(energy, lsd_full)
+    return graphs.run("tension", chain, energy, lsd_full, static=(cfg, T_out))
 
 
 def _plan_max_speed(global_speed: float, nonlinear_factor: float) -> float:
@@ -171,6 +185,7 @@ def batched_nonlinear_speedup(
     tables: Optional[Dict[str, torch.Tensor]] = None,
     period_grid: Optional[torch.Tensor] = None,
     reference: bool = False,
+    graphs: Optional[StepGraphs] = None,
 ) -> BatchResult:
     """One step: xs [B, L] float32 (±1), lengths [B] -> sped-up audio.
 
@@ -182,6 +197,9 @@ def batched_nonlinear_speedup(
     tables on xs' device (SpeedupEngine passes its buffers; built from cfg
     when None). period_grid [B, n_grid]: a precomputed pitch grid in place
     of the pitch search. reference=True runs the kernels' plain versions.
+    graphs: SpeedupEngine's StepGraphs for xs' key, which runs the op
+    chains between the kernels as CUDA graphs (parallel/graphs.py); the
+    result is fresh tensors all the same.
     """
     B, L = xs.shape
     dt, dev = xs.dtype, xs.device
@@ -198,7 +216,7 @@ def batched_nonlinear_speedup(
         tables = device_tables(cfg, dev)
     minp, maxp, _, _ = wsola.plan(cfg, L, min_speed_bound)
 
-    tension = batched_analysis(xs, cfg, T, gain, tables, reference)
+    tension = batched_analysis(xs, cfg, T, gain, tables, reference, graphs)
     if tension.shape[1] == 0:
         # Entire batch shorter than the tension lookahead: every frame
         # drains at the requested speed (the shim's flush behavior).
@@ -206,7 +224,8 @@ def batched_nonlinear_speedup(
     elif global_speed > 1.0:
         # Parallel fixed-point form (a contraction only for rg > 1).
         speeds = speed_from_tension_parallel(
-            tension, global_speed, duration_feedback_strength, nonlinear_factor
+            tension, global_speed, duration_feedback_strength, nonlinear_factor,
+            run_chain=None if graphs is None else graphs.chain("law"),
         )
     else:
         speeds, _ = speed_from_tension(
@@ -245,7 +264,10 @@ def batched_nonlinear_speedup(
             tables["cola"], corr,
             max_speed_plan=_plan_max_speed(global_speed, nonlinear_factor),
             gain=gain, period_grid=period_grid, reference=reference,
+            run_chain=None if graphs is None else graphs.chain("grid"),
         )
+    if graphs is not None:
+        tension = tension.clone()
     return BatchResult(out.output, out.valid_length, tension, speeds)
 
 
@@ -256,6 +278,14 @@ class SpeedupEngine(nn.Module):
         engine = SpeedupEngine(SpeedyConfig(16000), 3.5, capacity_factor=1.33)
         engine.to("cuda")
         result = engine(xs, lengths, gain)
+
+    On a CUDA device the engine runs the op chains between the kernels as
+    CUDA graphs (parallel/graphs.py) for one key: xs' shape, dtype and
+    device, the current stream, and the engine's settings. A step whose
+    key differs from the last step's runs eagerly and makes its key the
+    engine's; the next step with that key captures the graphs, and every
+    later one replays them. So the graphs pay off where one key repeats
+    from step to step; where it changes every step, every step is eager.
     """
 
     def __init__(
@@ -276,6 +306,8 @@ class SpeedupEngine(nn.Module):
         self.capacity_factor = capacity_factor
         for name, tab in device_tables(cfg, "cpu").items():
             self.register_buffer(name, tab)
+        self._graph_key: Optional[tuple] = None
+        self._step_graphs: Optional[StepGraphs] = None
 
     def tables(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in TABLE_NAMES + DERIVED_TABLES}
@@ -310,5 +342,22 @@ class SpeedupEngine(nn.Module):
             xs, lengths, self.cfg, self.global_speed, self.nonlinear_factor,
             self.duration_feedback_strength, self.min_speed_bound,
             gain=gain, capacity_factor=self.capacity_factor,
-            tables=self.tables(),
+            tables=self.tables(), graphs=self._graphs(xs),
         )
+
+    def _graphs(self, xs: torch.Tensor) -> Optional[StepGraphs]:
+        """The step's graphs for xs, or None for an eager step: on the CPU,
+        inside a capture of the caller's own, and where the key is not the
+        last step's."""
+        if not xs.is_cuda or torch.cuda.is_current_stream_capturing():
+            return None
+        index = xs.get_device()
+        key = (tuple(xs.shape), xs.dtype, index, kernels._current_stream(index), self.cfg,
+               self.global_speed, self.nonlinear_factor, self.duration_feedback_strength,
+               self.min_speed_bound, self.capacity_factor)
+        if key != self._graph_key:
+            self._graph_key, self._step_graphs = key, None
+            return None
+        if self._step_graphs is None:
+            self._step_graphs = StepGraphs(xs.device)
+        return self._step_graphs

@@ -24,7 +24,15 @@ dtype, device) and hands the same device tensor to every later call, so a
 warm step makes none of those waits; each later call adds one to
 HITS[site] instead of SYNCS[site]. It holds at most HELD_MAX tensors and
 HELD_MAX_BYTES in all, dropping the least recently used; clear_held()
-drops them all.
+drops them all. held_reads() collects every tensor upload_once() hands
+out inside its block, so that what keeps using one (a CUDA graph that
+captured it) can hold its own reference.
+
+Graphs. GRAPHS counts the batch engine's CUDA graphs of its op chains
+(parallel/graphs.py) by chain and event, as "<chain>:capture" and
+"<chain>:replay" ("tension", "law", "grid"): a step on the graphed path
+replays each chain once, and the step that captures a chain replays it
+too.
 
 LAUNCHES counts the port's own kernel launches (ops/kernels.py adds to it;
 PyTorch's kernels are not in it). BODIES splits a kernel's launches by the
@@ -33,8 +41,8 @@ body its plan picked, as "<kernel>:<body>": kernel 1's are
 profiler records each of its launches runs inside a
 "speedy:analysis_kernel:<body>" span. LOAD_S is the host seconds of
 ops/_build.load()'s one call, LOAD_BUILT whether that call compiled the
-kernels (False: it found them built). reset() zeroes the counts, HITS
-and BODIES among them, and leaves the held constants.
+kernels (False: it found them built). reset() zeroes the counts, HITS,
+BODIES and GRAPHS among them, and leaves the held constants.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import contextlib
 import functools
 import threading
 from collections import OrderedDict
-from typing import Dict, Hashable, Optional
+from typing import Dict, Hashable, List, Optional
 
 import torch
 
@@ -65,6 +73,9 @@ SYNCS: Dict[str, int] = {}
 SYNC_BYTES: Dict[str, int] = {}
 # upload_once() calls served by a held tensor since the last reset, by site.
 HITS: Dict[str, int] = {}
+# Captures and replays of the batch engine's graphs since the last reset,
+# as "<chain>:capture" and "<chain>:replay".
+GRAPHS: Dict[str, int] = {}
 LOAD_S: Optional[float] = None
 LOAD_BUILT: Optional[bool] = None
 
@@ -75,6 +86,7 @@ HELD_MAX_BYTES = 1 << 28
 _held: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()  # least recent first
 _held_bytes = 0
 _held_lock = threading.Lock()
+_readers: List[List[torch.Tensor]] = []  # the lists of open held_reads() blocks
 
 
 def layer(name: str):
@@ -152,15 +164,29 @@ def upload_once(site: str, data, dtype: torch.dtype, device,
         if out is not None:
             _held.move_to_end(k)
             HITS[site] = HITS.get(site, 0) + 1
-            return out
-    out = upload(site, data, dtype=dtype, device=dev)
-    with _held_lock:
-        if k not in _held:
-            _held[k] = out
-            _held_bytes += out.nbytes
-        while len(_held) > 1 and (len(_held) > HELD_MAX or _held_bytes > HELD_MAX_BYTES):
-            _held_bytes -= _held.popitem(last=False)[1].nbytes
+    if out is None:
+        out = upload(site, data, dtype=dtype, device=dev)
+        with _held_lock:
+            if k not in _held:
+                _held[k] = out
+                _held_bytes += out.nbytes
+            while len(_held) > 1 and (len(_held) > HELD_MAX or _held_bytes > HELD_MAX_BYTES):
+                _held_bytes -= _held.popitem(last=False)[1].nbytes
+    for reads in _readers:
+        reads.append(out)
     return out
+
+
+@contextlib.contextmanager
+def held_reads():
+    """A list that collects every tensor upload_once() returns while the
+    block runs."""
+    reads: List[torch.Tensor] = []
+    _readers.append(reads)
+    try:
+        yield reads
+    finally:
+        _readers.remove(reads)
 
 
 def clear_held() -> None:
@@ -173,10 +199,11 @@ def clear_held() -> None:
 
 
 def reset() -> None:
-    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES and HITS."""
+    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES, HITS and GRAPHS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BODIES.clear()
+    GRAPHS.clear()
     SYNCS.clear()
     SYNC_BYTES.clear()
     HITS.clear()
