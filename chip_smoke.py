@@ -1,33 +1,41 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Card check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
-Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card (kernels 1 and
-2 at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz B=32 x 10 s, with their
-device times, kernel 1 also at the other sample rates; kernel 3 bitwise
-to its plain version and to ops/synth_model.py's model of its plan at
-hops 160 (B=128), 220, 441, 110 and 480, on one 60 s row and on edge
-cases, with device times; the row gathers 4-8 also against each other,
-at the grid engine's shape B=128 x 10 s at 16 kHz, K=1,009 rows of 321),
-and drives the port's paths, each against the same call through the
-plain versions:
+Builds the port's CUDA kernels from speedy_tpu_torch/csrc with nvcc and
+checks them and the port's paths on the card. It times kernels only, for
+the table of kernels; the benchmark (portbench/) times the paths. Its
+inputs are the benchmark's four families (portbench/traffic_gen.py), and
+kernels 1 and 2's bounds are the benchmark's (portbench/roofline.py).
+
+Each kernel is held against its plain PyTorch version on the card, with
+its times (kernels 1 and 2 at 16 kHz B=128, 22.05 kHz B=8 and 44.1 kHz
+B=32 x 10 s, kernel 1 also at the other sample rates; kernel 3 bitwise to
+its plain version and to ops/synth_model.py's model of its plan at hops
+160 (B=128), 220, 441, 110 and 480, on one 60 s row and on edge cases;
+the row gathers 4-8 also against each other, at the grid engine's shape
+B=128 x 10 s at 16 kHz, K=1,009 rows of 321). The port's paths are each
+held against the same call through the plain versions, with their
+launches:
   - the batched path (SpeedupEngine: B=128 utterances of 10 s at 16 kHz,
-    3.5x, capacity factor 1.33, per-utterance gain), then the dryrun sweep
-    cases (0.7x with a ragged length; 22.05 kHz 3.0x), then B=32 x 10 s at
-    44.1 kHz, 3.5x, capacity factor 1.33;
+    3.5x, capacity factor 1.33, per-utterance gain), its graphed step
+    against its eager step, then the dryrun sweep cases (0.7x with a
+    ragged length; 22.05 kHz 3.0x), then B=32 x 10 s at 44.1 kHz, 3.5x,
+    capacity factor 1.33;
   - the single-utterance grid pipeline (pipeline.nonlinear_speedup on 60 s
     at 16 kHz, 3.5x; linear_time_scale at 44.1 kHz, 2.0x and the 1.0x
     pass-through; time_scale_grid with a speed ceiling against without
-    one), and its CLI in a subprocess against the same call in process;
+    one), and its CLI in a subprocess against the same call in process,
+    with the subprocess's wall seconds (start-up included);
   - the sequential speed law's kernel (csrc/speed_law.cu), bitwise equal
     to its plain loop on the card for the 60 s call's tension, the 0.7x
     sweep's batch, seeded [128, 999] tension at 3 rates x 2 feedbacks x 2
-    nonlinear factors, and carried-in durations; its host, event and
-    profiler times beside the plain loop's;
+    nonlinear factors, and carried-in durations; its event, profiler and
+    plain-loop times;
   - the block-span synthesis route (kernel 5) against kernel 3 on the
-    bounded 60 s run's chunk positions and on the batch step's;
+    bounded 60 s run's chunk positions and on the batch step's, with both
+    routes' times;
   - the experiment probes (speedy_tpu_torch/experiments: kernels 9-15),
     each probe's question once through its kernel, then the kernel
     against its plain version and the library call, then its times
@@ -118,14 +126,10 @@ SLOW_BATCH_KERNELS = (*BATCH_KERNELS, "speed_law")
 GRAPH_CHAINS = ("tension", "law", "grid")
 SINGLE_KERNELS = ("pitch_ssd", "gather_rows", "speed_law")
 SINGLE_ENGINE_KERNELS = ("pitch_ssd", "gather_rows")
-# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s,
-# float32 FLOP/s outside the tensor cores (an FMA is 2 FLOP), and the
-# tensor cores' dense bf16 FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+# The H100 SXM's tensor cores' dense bf16 FLOP/s (NVIDIA data sheet); its
+# HBM3 bytes/s and float32 FLOP/s are portbench/roofline.py's.
 BF16_FLOP_PER_S = 989e12
 CORR = ("pitch_ea", "pitch_es", "pitch_inv", "pitch_band")
-STEP_WINDOWS, STEPS_PER_WINDOW = 5, 10
 
 
 class SmokeFailure(AssertionError):
@@ -147,30 +151,11 @@ def emit(phase: str, **fields) -> None:
 
 
 def bench_families(L: int, sr: int, seed: int = 0) -> np.ndarray:
-    """[4, L] float32: the four synthetic families of bench.py:295-316
-    (copied: bench.py imports JAX)."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(L) / sr
+    """[4, L] float32: the benchmark's four synthetic families
+    (portbench/traffic_gen.py::families, which imports torch)."""
+    from portbench import traffic_gen
 
-    def speechlike(f0_base, f0_mod, f0_rate, syll_hz, n_harm):
-        f0 = f0_base + f0_mod * np.sin(2 * np.pi * f0_rate * t)
-        phase = np.cumsum(2 * np.pi * f0 / sr)
-        voiced = sum(np.sin(k * phase) / k for k in range(1, n_harm + 1))
-        envelope = np.clip(np.sin(2 * np.pi * syll_hz * t), 0, None)
-        return (voiced * envelope * 0.2).astype(np.float32)
-
-    fam0 = speechlike(110.0, 30.0, 0.7, 2.5, 5)
-    fam1 = speechlike(210.0, 45.0, 1.3, 4.0, 7)
-    bursts = (np.sin(2 * np.pi * 3.1 * t) > 0.3).astype(np.float32)
-    fam2 = (rng.standard_normal(L) * 0.12 * bursts).astype(np.float32)
-    chirp_f0 = 90.0 + 160.0 * (0.5 + 0.5 * np.sin(2 * np.pi * 0.11 * t))
-    phase_c = np.cumsum(2 * np.pi * chirp_f0 / sr)
-    fam3 = (
-        (np.sin(phase_c) + 0.5 * np.sin(2 * phase_c))
-        * np.clip(np.sin(2 * np.pi * 1.8 * t + 0.7), 0, None)
-        * 0.2
-    ).astype(np.float32)
-    return np.stack([fam0, fam1, fam2, fam3])
+    return traffic_gen.families(L, sr, seed)
 
 
 def batch_of(families: np.ndarray, B: int) -> np.ndarray:
@@ -266,17 +251,14 @@ def assert_period_flips_are_ties(segs, per_a, per_b, taps, minp, maxp,
               float(per_a[b, g]), float(per_b[b, g]), margin)
 
 
-def bound(nbytes: float, flops: float = 0.0, flop_per_s: float = F32_FLOP_PER_S):
+def bound(nbytes: float, flops: float = 0.0, flop_per_s=None):
     """The least time the card could take for work that moves nbytes and
     does flops operations at flop_per_s (float32 by default): (ms, "bytes"
     or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
+    from portbench.roofline import F32_FLOP_PER_S, HBM_BYTES_PER_S
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (flop_per_s or F32_FLOP_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def rfft_flop(n: int) -> float:
-    """The usual count of a real FFT of n points: 2.5 n log2 n FLOP."""
-    return 2.5 * n * np.log2(n)
 
 
 def covered_samples(starts, width, live, L) -> int:
@@ -334,9 +316,10 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
     """Kernel 1 on the arguments batch.batched_analysis passes it for x
     [B, L] (so any checkout's tables and signature), against its plain
     version with hold_energy_lsd's tolerances. Its CUDA-event and device
-    times, the plain version's, and the transform alone by
-    torch.fft.rfft."""
+    times, the plain version's, the transform alone by torch.fft.rfft, and
+    its bound (portbench/roofline.py::analysis_bound_s)."""
     import torch
+    from portbench.roofline import F32_FLOP_PER_S, analysis_bound_s
     from speedy_tpu_torch.ops import analysis_fft
 
     T = cfg.num_frames(x.shape[1], integer_step=True)
@@ -350,7 +333,7 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
         e_k, l_k, e_p, l_p, x, cfg, label, edge_frames)
     call = lambda: kernels.analysis_energy_lsd(*args)
     ms = time_ms(call)
-    device_ms = device_profile(call)[0]
+    device_ms = device_profile(call)
     plain_ms = time_ms(lambda: kernels.analysis_energy_lsd_reference(*args))
     # The transform alone, not the kernel's function: torch.fft.rfft of the
     # frames, materialized beforehand, at n = 2W, and its magnitude.
@@ -360,19 +343,12 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
     library_transform_ms = time_ms(lambda: torch.fft.rfft(frames, n=2 * W).abs())
     del frames
     err = float(e_err.max())
-    # The least work a frame needs: pre-emphasis and window (3 FLOP a
-    # sample), bins 1..W-1 of the frame zero-padded to 2W points, by a real
-    # FFT or, if fewer, by the direct sums' 2*W*(W-1) FMAs, and per bin its
-    # magnitude, the energy, the threshold's max, the normalisation and the
-    # masked log ratio (13 FLOP). x, gain, the window and twiddles read
-    # once, energy and lsd written once. Beside it, the floor of any direct
-    # sum: its 2*W*(W-1) FMAs a frame at the float32 peak.
-    spectrum = min(rfft_flop(2 * W), 4.0 * W * (W - 1))
-    nbytes = 4 * (B * L + B + W + 4 * W + 2 * B * T)
-    bound_ms, bound_by = bound(nbytes, (3 * W + spectrum + 13 * (W - 1)) * B * T)
+    bound_ms = analysis_bound_s(B, L, W, T) * 1e3
+    # The floor of any direct sum: its 2*W*(W-1) FMAs a frame at the
+    # float32 peak.
     direct_sum_floor_ms = 4.0 * W * (W - 1) * B * T / F32_FLOP_PER_S * 1e3
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                  library_ms=None, device_ms=device_ms,
                   library_transform_ms=library_transform_ms)
     # Where the plan runs the direct sum: the share of its floor the kernel
     # reaches, and whether a pair of bins reads one twiddle (the table
@@ -386,7 +362,7 @@ def check_analysis(kernels, batch, x, gain, cfg, label, edge_frames=False):
                       ("mirrored" if mirrored else "own entries"))
     emit("kernel", kernel="analysis_energy_lsd", shape=label, frames=B * T,
          energy_max_abs_err=err, lsd_max_abs_err=float(dl.max()),
-         lsd_frames_out_max=worst_frames, lsd_mask_edge_frames=edges, bytes=nbytes,
+         lsd_frames_out_max=worst_frames, lsd_mask_edge_frames=edges,
          direct_sum_floor_ms=direct_sum_floor_ms, **direct, **result)
     return result
 
@@ -400,7 +376,11 @@ def short_input(sr: int, dev):
 
 
 def check_pitch(kernels, x, gain, tables, cfg, label):
+    """Kernel 2 against its plain version and the float64 search on x [B,
+    L]; its CUDA-event and device times, the plain version's, and its bound
+    (portbench/roofline.py::pitch_bound_s)."""
     import torch
+    from portbench.roofline import F32_FLOP_PER_S, pitch_bound_s
     from speedy_tpu_torch.ops.wsola_fast import pitch_grid_stride
 
     B, L = x.shape
@@ -431,31 +411,21 @@ def check_pitch(kernels, x, gain, tables, cfg, label):
     assert_period_flips_are_ties(segs, per_p, per_k, taps, minp, maxp)
     call = lambda: kernels.pitch_ssd(*args)
     ms = time_ms(call)
-    device_ms = device_profile(call)[0]
+    device_ms = device_profile(call)
     plain_ms = time_ms(lambda: kernels.pitch_ssd_reference(*args))
     err = float(d.max())
-    # The least work a cell needs: the gain (1 FLOP a sample of its seg_w),
-    # the correlation of its taps-sample template with the segment at each
-    # of its nl lags, by FFTs of seg_w points (two forward, one inverse, 6
-    # FLOP a bin between; lag + taps <= seg_w, so nothing wraps) or, if
-    # fewer, by the direct sums' taps FMAs a lag; the window energies by a
-    # running sum (2 FLOP a sample) and per lag the SSD and the argmin (4
-    # FLOP). x and gain read once, the periods written once. Beside it, the
-    # floor of the direct sums: taps FMAs a lag at the float32 peak.
-    nl = maxp - minp + 1
-    corr = min(3 * rfft_flop(seg_w) + 6 * (seg_w // 2 + 1), 2.0 * taps * nl)
-    nbytes = 4 * (B * L + B + B * n_grid)
-    bound_ms, bound_by = bound(nbytes, (3 * seg_w + corr + 4 * nl) * B * n_grid)
-    direct_sum_floor_ms = 2.0 * taps * nl * B * n_grid / F32_FLOP_PER_S * 1e3
+    bound_ms = pitch_bound_s(B, L, taps, minp, maxp, n_grid) * 1e3
+    # The floor of the direct sums: taps FMAs a lag at the float32 peak.
+    direct_sum_floor_ms = 2.0 * taps * (maxp - minp + 1) * B * n_grid / F32_FLOP_PER_S * 1e3
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                  library_ms=None, device_ms=device_ms,
                   integer_flips=int(flips.sum()),
                   kernel_share_off_f64_0p1=float(np.mean(dk > 0.1)))
     emit("kernel", kernel="pitch_ssd", shape=label, G=G, cells=B * n_grid,
          direct_sum_floor_ms=direct_sum_floor_ms, share_off_0p1_same_lag=share,
          plain_share_off_f64_0p1=float(np.mean(dp > 0.1)),
          kernel_max_off_f64=float(dk.max()), plain_max_off_f64=float(dp.max()),
-         bytes=nbytes, **result)
+         **result)
     return result
 
 
@@ -524,7 +494,7 @@ def check_synth(kernels, synth_model, x, gain, hop, K, rate, label, valid=None, 
           float((out_k - out_m).abs().max()))
     call = lambda: kernels.gather_synth(*args)
     ms = time_ms(call)
-    device_ms = device_profile(call)[0]
+    device_ms = device_profile(call)
     plain_ms = time_ms(lambda: kernels.gather_synth_reference(*args))
     # The output written once; read once: the 2*hop + 1 samples of every
     # chunk that feeds a valid output slot, and the controls.
@@ -860,7 +830,7 @@ def check_gather(kernels, name, label, x, starts, width, n_valid=None, same_as=N
     if n_valid is not None:
         kw["n_valid"] = n_valid
     call = lambda: fn(x, starts, width, **kw)
-    launches, rows = path_launches(kernels, call)
+    launches, rows = path_launches(call)
     check(launches[name] == 1 and sum(launches.values()) == 1, label, name, "launches",
           launches)
     plain = lambda: kernels.gather_rows_reference(x, starts, width, n_valid)
@@ -895,8 +865,8 @@ def check_gather(kernels, name, label, x, starts, width, n_valid=None, same_as=N
     # the host's launch path, tens of microseconds for a ctypes launch.
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=library_ms, launches=launches[name],
-                  device_ms=device_profile(call)[0],
-                  library_device_ms=device_profile(library)[0])
+                  device_ms=device_profile(call),
+                  library_device_ms=device_profile(library))
     emit("kernel", kernel=name, shape=label, B=B, K=K, width=width, L=L,
          rows_live=int(live.sum()), bytes=nbytes, **result)
     return result, rows
@@ -1026,8 +996,8 @@ def span_route_check(kernels, wsola_fast, tables, xs, lengths, speeds, gain, cfg
     spans = lambda: wsola_fast._synth_spans(xs, a_i, a_f, cola, gain, pos.valid, hop,
                                             capacity, maxp, ceiling)
     fused = lambda: kernels.gather_synth(xs, a_i, a_f, cola, g, pos.valid, hop, capacity)
-    l_s, y_s = path_launches(kernels, spans)
-    l_f, y_f = path_launches(kernels, fused)
+    l_s, y_s = path_launches(spans)
+    l_f, y_f = path_launches(fused)
     check(l_s["gather_rows_block"] >= 1 and sum(l_s.values()) == l_s["gather_rows_block"],
           label, "span route launches", l_s)
     check(l_f["gather_synth"] == 1 and sum(l_f.values()) == 1, label, "kernel 3 launches", l_f)
@@ -1093,7 +1063,7 @@ def probe_headline(name: str, rows: list) -> dict:
     return next(r for r in rows if pick(r))
 
 
-def probe_phase(kernels, dev) -> dict:
+def probe_phase(dev) -> dict:
     """Kernels 9-15 through their experiment entry points: each probe's
     check() with the launch counts set to 0 just before and read just
     after, which must show its kernel and no other (but PROBE_ORACLES'
@@ -1110,7 +1080,7 @@ def probe_phase(kernels, dev) -> dict:
     t0 = time.perf_counter()
     for name, module in PROBE_KERNELS.items():
         mod = importlib.import_module(f"speedy_tpu_torch.experiments.{module}")
-        counts, rows = path_launches(kernels, lambda: mod.check(dev))
+        counts, rows = path_launches(lambda: mod.check(dev))
         check(only(counts, (name, *PROBE_ORACLES.get(name, ()))), module, "launches", counts)
         answered = sum(r["launches"] for r in rows)
         check(0 < answered <= counts[name], module, "answer launches", answered, counts)
@@ -1134,7 +1104,7 @@ def check_other_card(kernels) -> dict:
         return dict(run=False, reason="one card")
     check(torch.cuda.current_device() == 0, "cuda:0 is not the current device")
     x = torch.randn(64, 512, device="cuda:1")
-    counts, out = path_launches(kernels, lambda: kernels.lane_roll(x, 266))
+    counts, out = path_launches(lambda: kernels.lane_roll(x, 266))
     torch.cuda.synchronize(1)
     check(out.device == x.device and torch.equal(out, torch.roll(x, 266, 1)),
           "lane_roll on cuda:1")
@@ -1214,7 +1184,7 @@ def check_span_rows_unaligned(kernels, dev) -> None:
               length_rows=bisect_kernel.LENGTH_ROWS)
     for mode in bisect_kernel.MODES:
         counts, got = path_launches(
-            kernels, lambda: kernels.bisect_span_rows(nvb, bases, q8k, shifted, mode, **kw))
+            lambda: kernels.bisect_span_rows(nvb, bases, q8k, shifted, mode, **kw))
         want = kernels.bisect_span_rows_reference(nvb, bases, q8k, x2, mode, **kw)
         check(counts["bisect_span_rows"] == 1 and torch.equal(got, want),
               "bisect_span_rows unaligned x2", mode, counts["bisect_span_rows"])
@@ -1320,13 +1290,15 @@ def only(launches, names) -> bool:
     return all((launches[k] > 0) == (k in names) for k in launches)
 
 
-def graphed_step(kernels, trace, engine, args, eager, label):
+def graphed_step(engine, args, eager, label):
     """The engine's third step on args, after its eager first step
     (eager: that step's launch counts, body counts and result) and the
     second, which captures the graphs: the step replays the three graphs,
     captures none, syncs nothing, launches what the eager step launched,
     and gives its result bitwise. Returns the result and trace.GRAPHS."""
     import torch
+
+    from speedy_tpu_torch import trace
 
     engine(*args)
     torch.cuda.synchronize()
@@ -1338,67 +1310,26 @@ def graphed_step(kernels, trace, engine, args, eager, label):
     check(graphs == {f"{c}:replay": 1 for c in GRAPH_CHAINS}, label,
           "a warm step left its three graphs", graphs)
     check(not trace.SYNCS, label, "a warm step synced", trace.SYNCS)
-    check(dict(kernels.LAUNCHES) == launches and dict(kernels.BODIES) == bodies, label,
+    check(dict(trace.LAUNCHES) == launches and dict(trace.BODIES) == bodies, label,
           "the graphed step launched other kernels than the eager one",
-          kernels.LAUNCHES, kernels.BODIES)
+          trace.LAUNCHES, trace.BODIES)
     check(all(torch.equal(a, b) for a, b in zip(res, want)), label,
           "the graphed step differs from the eager one")
     return res, graphs
 
 
-def path_launches(kernels, run):
+def path_launches(run):
     """run() with every launch count set to 0 just before; the counts just
     after, and run()'s result."""
     import torch
 
+    from speedy_tpu_torch import trace
+
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    trace.reset()
     out = run()
     torch.cuda.synchronize()
-    return dict(kernels.LAUNCHES), out
-
-
-def host_ms(fn, reps: int = 5) -> float:
-    """Median host wall time of fn() in ms, each call ending in a
-    synchronize (after one warm-up call)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times) * 1e3
-
-
-def single_split_ms(x, cfg, rate, dev):
-    """Host wall ms (median of 5) of one nonlinear_speedup call on x and of
-    its three parts: analysis, the sequential speed law (the kernel, with
-    the read-back of its speeds), and the grid engine (time_scale_grid,
-    with the read-back of its output); beside them the plain loop of the
-    speed law on the card, one call after a warm-up call."""
-    import torch
-    from speedy_tpu_torch import pipeline
-    from speedy_tpu_torch.ops import analysis, speed, wsola_fast
-
-    xt = torch.as_tensor(x, device=dev)
-    tension = analysis.analyze(xt, cfg, integer_step=True).tension
-    speeds = speed.speed_from_tension(tension[None], rate, 0.1, 1.0)[0][0]
-    msb = max(0.01, float(speeds.min()) * 0.999)
-    law = lambda reference: speed.speed_from_tension(
-        tension[None], rate, 0.1, 1.0, reference=reference)[0].cpu()
-    return {
-        "call": host_ms(lambda: pipeline.nonlinear_speedup(
-            x, cfg, rate, 1.0, 0.1, engine="grid", device=dev)),
-        "analysis": host_ms(lambda: analysis.analyze(xt, cfg, integer_step=True)),
-        "speed_law": host_ms(lambda: law(False)),
-        "speed_law_plain_loop": host_ms(lambda: law(True), reps=1),
-        "engine": host_ms(lambda: wsola_fast.time_scale_grid(
-            xt, speeds, cfg, min_speed_bound=msb, device=dev).output.cpu()),
-    }
+    return dict(trace.LAUNCHES), out
 
 
 # ---------------------------------------------------------------------------
@@ -1495,7 +1426,7 @@ def speed_law_phase(kernels, single_args, sweep_args, dev, sm_clock_mhz) -> dict
         B, T = tension.shape
         call = lambda: kernels.speed_law(tension, rate, fb, nl, init)
         ms = time_ms(call)
-        device_ms = device_profile(call)[0]
+        device_ms = device_profile(call)
         plain_ms = time_ms(lambda: kernels.speed_law_reference(tension, rate, fb, nl, init),
                            reps=1, warmup=0)
         nbytes = 4 * (2 * B * T + 4 * B)
@@ -1650,7 +1581,7 @@ def main() -> int:
         results[name] = gathers[name]
 
     # ---- 3c. the experiment probes (kernels 9-15) ----
-    results.update(probe_phase(kernels, dev))
+    results.update(probe_phase(dev))
     check_bisect_edges(kernels, dev)
     check_span_rows_unaligned(kernels, dev)
     emit("other_card", **check_other_card(kernels))
@@ -1659,20 +1590,16 @@ def main() -> int:
     rate, cap_factor = 3.5, 1.33
     engine = SpeedupEngine(cfg16, rate, 1.0, 0.1, capacity_factor=cap_factor).to(dev)
     lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    res = engine(xs16, lengths, gain16)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches, res = path_launches(lambda: engine(xs16, lengths, gain16))
     check(only(launches, BATCH_KERNELS), "main path skipped a kernel or left its route",
           launches)
-    bodies = dict(kernels.BODIES)
+    bodies = dict(trace.BODIES)
     check(bodies == {"analysis_energy_lsd:fft": 1}, "16 kHz kernel 1 left its FFT body",
           bodies)
     # Every later step replays the engine's graphs: the checks below hold
     # a replayed step.
-    res, graphs = graphed_step(kernels, trace, engine, (xs16, lengths, gain16),
-                               (launches, bodies, res), "main path")
+    res, graphs = graphed_step(engine, (xs16, lengths, gain16), (launches, bodies, res),
+                               "main path")
     capacity = res.output.shape[1]
     check(capacity == batch.grid_output_capacity(cfg16, L, rate, cap_factor), "capacity")
     max_valid = int(res.valid_length.max())
@@ -1682,34 +1609,9 @@ def main() -> int:
     checksum = float(res.output.double().sum())
     cmp = compare_paths(batch, kernels, xs16, lengths, gain16, cfg16, rate, cap_factor,
                         res, "main")
-    # Host-clock steps with fresh gains: 2 warm-up steps, then 5 windows of
-    # 10; the median over all 50 is the headline, the window medians show
-    # the spread within the run.
-    windows = []
-    for w in range(STEP_WINDOWS + 1):
-        steps = []
-        for _ in range(2 if w == 0 else STEPS_PER_WINDOW):
-            g = torch.as_tensor(rng.uniform(0.5, 1.0, B).astype(np.float32), device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine(xs16, lengths, g)
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t0)
-        windows.append(steps)
-    timed = [s for steps in windows[1:] for s in steps]
-    step_s = statistics.median(timed)
-    layers = layer_times(batch, kernels, engine, xs16, lengths, gain16, cfg16, rate)
-    busy_ms, n_launches, top = device_profile(lambda: engine(xs16, lengths, gain16))
     emit("main_path", B=B, L=L, sample_rate=16000, rate=rate, capacity=capacity,
          max_valid=max_valid, launches=launches, bodies=bodies, graphs=graphs,
-         checksum=checksum,
-         step_ms_median=step_s * 1e3, steps_timed=len(timed),
-         step_ms_window_medians=[statistics.median(s) * 1e3 for s in windows[1:]],
-         step_ms_min=min(timed) * 1e3, step_ms_max=max(timed) * 1e3,
-         audio_s_per_s=B * L / 16000 / step_s, layers_ms=layers,
-         device_busy_ms=busy_ms,
-         device_idle_share=None if busy_ms is None else 1.0 - busy_ms / (step_s * 1e3),
-         device_kernels_per_step=n_launches, top_device_ms=top, **cmp)
+         checksum=checksum, **cmp)
 
     # ---- 5. sweep cases ----
     srng = np.random.default_rng(0)
@@ -1726,7 +1628,7 @@ def main() -> int:
         x_t = torch.as_tensor(x_np, device=dev)
         l_t = torch.as_tensor(l_np, device=dev)
         run = lambda: batch.batched_nonlinear_speedup(x_t, l_t, cfg, r, 1.0, 0.1)
-        swept, out = path_launches(kernels, run)
+        swept, out = path_launches(run)
         # At or below 1x the batch path runs the sequential law (kernel
         # speed_law); its arguments are recorded for the speed-law phase.
         slow = r <= 1.0
@@ -1744,13 +1646,13 @@ def main() -> int:
     B44, L44 = xs44.shape
     engine44 = SpeedupEngine(cfg44, rate, 1.0, 0.1, capacity_factor=cap_factor).to(dev)
     lengths44 = torch.full((B44,), L44, dtype=torch.int32, device=dev)
-    l44, res44 = path_launches(kernels, lambda: engine44(xs44, lengths44, gain44))
+    l44, res44 = path_launches(lambda: engine44(xs44, lengths44, gain44))
     check(only(l44, BATCH_KERNELS), "44.1 kHz batch skipped a kernel or left its route", l44)
-    bodies44 = dict(kernels.BODIES)
+    bodies44 = dict(trace.BODIES)
     check(bodies44 == {"analysis_energy_lsd:direct": 1}, "44.1 kHz kernel 1 left its direct body",
           bodies44)
-    res44, graphs44 = graphed_step(kernels, trace, engine44, (xs44, lengths44, gain44),
-                                   (l44, bodies44, res44), "44.1 kHz batch")
+    res44, graphs44 = graphed_step(engine44, (xs44, lengths44, gain44), (l44, bodies44, res44),
+                                   "44.1 kHz batch")
     cap44 = res44.output.shape[1]
     check(cap44 == batch.grid_output_capacity(cfg44, L44, rate, cap_factor), "44.1 kHz capacity")
     check(int(res44.valid_length.max()) < cap44, "44.1 kHz truncated output")
@@ -1765,25 +1667,20 @@ def main() -> int:
     # ties, sub-sample agreement elsewhere.
     cmp = compare_paths(batch, kernels, xs44, lengths44, gain44, cfg44, rate, cap_factor,
                         res44, "44.1kHz batch", own_share_gate=False)
-    step44 = host_ms(lambda: engine44(xs44, lengths44, gain44))
-    busy44, n44, top44 = device_profile(lambda: engine44(xs44, lengths44, gain44))
     emit("batch", case=f"44.1kHz B={B44} L={L44} {rate}x cap {cap_factor}", launches=l44,
          bodies=bodies44, graphs=graphs44,
          capacity=cap44, max_valid=int(res44.valid_length.max()),
-         checksum=float(res44.output.double().sum()), step_ms_host_median=step44,
-         audio_s_per_s=B44 * L44 / 44100 / (step44 / 1e3), device_busy_ms=busy44,
-         device_idle_share=None if busy44 is None else 1.0 - busy44 / step44,
-         device_kernels_per_step=n44, top_device_ms=top44, **cmp)
+         checksum=float(res44.output.double().sum()), **cmp)
     del engine44, res44
 
     # ---- 6. the single-utterance grid pipeline ----
-    l_nl, res_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
+    l_nl, res_nl = path_launches(lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
     check(only(l_nl, SINGLE_KERNELS), "single nonlinear skipped a kernel or left its route",
           l_nl)
     check(np.all(np.isfinite(res_nl.output)) and res_nl.tension.shape[0] > 0,
           "single nonlinear output")
-    l_pl, plain_nl = path_launches(kernels, lambda: pipeline.nonlinear_speedup(
+    l_pl, plain_nl = path_launches(lambda: pipeline.nonlinear_speedup(
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev, reference=True))
     check(not any(l_pl.values()), "the plain path launched a kernel", l_pl)
     cmp = compare_single(kernels, wsola_fast, x60, cfg16, res_nl, plain_nl,
@@ -1793,14 +1690,12 @@ def main() -> int:
         x60, cfg16, 3.5, 1.0, 0.1, engine="grid", device=dev))
     results["speed_law"] = speed_law_phase(kernels, single_law_args, sweep_law_args, dev,
                                            sm_clock_mhz)
-    wall = single_split_ms(x60, cfg16, 3.5, dev)
     emit("single", case="nonlinear 16kHz 60s 3.5x", launches=l_nl,
-         achieved_rate=res_nl.achieved_rate, wall_ms=wall,
-         audio_s_per_s=60.0 / (wall["call"] / 1e3), tension_frames=len(res_nl.tension),
+         achieved_rate=res_nl.achieved_rate, tension_frames=len(res_nl.tension),
          checksum=float(res_nl.output.astype(np.float64).sum()), **cmp)
 
     x44 = bench_families(30 * 44100, 44100)[0]
-    l_li, res_li = path_launches(kernels, lambda: pipeline.linear_time_scale(
+    l_li, res_li = path_launches(lambda: pipeline.linear_time_scale(
         x44, cfg44, 2.0, engine="grid", device=dev))
     check(only(l_li, SINGLE_ENGINE_KERNELS), "single linear route", l_li)
     plain_li = pipeline.linear_time_scale(x44, cfg44, 2.0, engine="grid", device=dev,
@@ -1815,18 +1710,15 @@ def main() -> int:
     lsb = int(np.abs(same.astype(np.int32) - x44i.astype(np.int32)).max())
     check(lsb <= 1, "pass-through off by", lsb)
     emit("single", case="linear 44.1kHz 30s 2.0x", launches=l_li,
-         achieved_rate=res_li.achieved_rate,
-         wall_ms=host_ms(lambda: pipeline.linear_time_scale(
-             x44, cfg44, 2.0, engine="grid", device=dev)),
-         passthrough_1x_max_lsb=lsb, **cmp)
+         achieved_rate=res_li.achieved_rate, passthrough_1x_max_lsb=lsb, **cmp)
 
     # A speed ceiling routes synthesis to kernel 3; without one, kernel 4.
     speeds = torch.as_tensor(res_nl.speeds, device=dev)
     check(float(speeds.max()) < 6.6, "speeds above the ceiling", float(speeds.max()))
     msb = max(0.01, float(speeds.min()) * 0.999)
-    l_b, r_b = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
+    l_b, r_b = path_launches(lambda: wsola_fast.time_scale_grid(
         x60, speeds, cfg16, min_speed_bound=msb, max_speed_bound=6.6, device=dev))
-    l_u, r_u = path_launches(kernels, lambda: wsola_fast.time_scale_grid(
+    l_u, r_u = path_launches(lambda: wsola_fast.time_scale_grid(
         x60, speeds, cfg16, min_speed_bound=msb, device=dev))
     check(only(l_b, ("pitch_ssd", "gather_synth")), "bounded route", l_b)
     check(only(l_u, SINGLE_ENGINE_KERNELS), "unbounded route", l_u)
@@ -1875,20 +1767,21 @@ def main() -> int:
         launches[name] = results[name]["launches"]
     # Kernels 1 and 2 add their device ms at each shape, and kernel 1 the
     # body it ran at each rate (their direct-sum floors are on the phase's
-    # kernel lines).
-    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # kernel lines). Their bounds are the benchmark's, which say nothing of
+    # what bounds them; every other kernel's bound says "bound_by".
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     extra = {
         "analysis_energy_lsd": ("library_transform_ms", "library_transform", "bodies",
                                 "shapes"),
         "pitch_ssd": ("shapes",),
-        "gather_synth": ("bound_share", "shapes"),
-        "narrow_operand_sum": ("floor_device_ms", "over_floor"),
-        "bisect_span_rows": ("floor_device_ms", "over_floor"),
+        "gather_synth": ("bound_by", "bound_share", "shapes"),
+        "narrow_operand_sum": ("bound_by", "floor_device_ms", "over_floor"),
+        "bisect_span_rows": ("bound_by", "floor_device_ms", "over_floor"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name],
-         **{k: results[name][k] for k in keys + extra.get(name, ())}}
+         **{k: results[name][k] for k in keys + extra.get(name, ("bound_by",))}}
         for name, (src, tpu) in KERNEL_SOURCES.items()
     ]}))
     print(smi)
@@ -1900,10 +1793,9 @@ def main() -> int:
 
 def device_profile(fn):
     """Device time of one call of fn under torch.profiler: the summed
-    kernel time in ms, the number of device kernels, and the eight largest
-    kernels by time; (None, 0, []) when the profiler saw no device work
-    (not measured). The program's "speedy:" ranges, which the profiler
-    also puts on the device's timeline, are not device work."""
+    kernel time in ms; None when the profiler saw no device work (not
+    measured). The program's "speedy:" ranges, which the profiler also
+    puts on the device's timeline, are not device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1921,70 +1813,8 @@ def device_profile(fn):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.name.startswith(trace.PREFIX)]
         if events:
-            break
-    if not events:
-        return None, 0, []
-    ms = [e.time_range.elapsed_us() / 1e3 for e in events]
-    by_name = {}
-    for e, t in zip(events, ms):
-        by_name[e.name] = by_name.get(e.name, 0.0) + t
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return sum(ms), len(events), [[name[:80], t] for name, t in top]
-
-
-def layer_times(batch, kernels, engine, xs, lengths, gain, cfg, rate):
-    """Median device ms of each layer of one main-path step at its real
-    inputs: analysis (kernel 1 and the [B, T] tension code), speed law,
-    pitch (kernel 2), synthesis (kernel 3), and the rest of the grid
-    engine (time map, phase snap, controls), as the engine's time less the
-    two kernels'."""
-    import torch
-    from speedy_tpu_torch.ops import speed, wsola_fast
-
-    tables = engine.tables()
-    B, L = xs.shape
-    T = cfg.num_frames(L, integer_step=True)
-    tension = batch.batched_analysis(xs, cfg, T, gain, tables)
-    speeds = speed.speed_from_tension_parallel(tension, rate, 0.1, 1.0)
-    res = engine(xs, lengths, gain)
-    maxp, minp = cfg.wsola_max_period, cfg.wsola_min_period
-    hop = wsola_fast.default_hop(cfg)
-    G = wsola_fast.pitch_grid_stride(cfg)
-    n_grid = -(-(L + 2 * maxp) // G)
-    capacity = res.output.shape[1]
-    K = capacity // hop + 1
-    corr = tuple(tables[k] for k in CORR)
-    grid = kernels.pitch_ssd(xs, gain, maxp, minp, maxp, G, n_grid, corr)
-    a = torch.linspace(0, L - 1, K, device=xs.device)[None].expand(B, K)
-    a_i = torch.floor(a).to(torch.int32).contiguous()
-    a_f = (a - a_i).contiguous()
-
-    def engine_step():
-        return wsola_fast.wsola_grid_batch(
-            xs, lengths, res.speeds, minp, maxp, cfg.frame_step_int, hop, capacity,
-            K, tables["cola"], corr, max_speed_plan=batch._plan_max_speed(rate, 1.0),
-            gain=gain,
-        )
-
-    out = {
-        "analysis": time_ms(lambda: batch.batched_analysis(xs, cfg, T, gain, tables)),
-        "analysis_kernel": time_ms(lambda: kernels.analysis_energy_lsd(
-            xs, gain, tables["hamming"], tables["dft_cos"], tables["dft_sin"],
-            tables["analysis_fft"], T, cfg.frame_step_int)),
-        "speed_law": time_ms(
-            lambda: speed.speed_from_tension_parallel(tension, rate, 0.1, 1.0)),
-        "grid_engine": time_ms(engine_step),
-        "pitch_kernel": time_ms(
-            lambda: kernels.pitch_ssd(xs, gain, maxp, minp, maxp, G, n_grid, corr)),
-        "synth_kernel": time_ms(lambda: kernels.gather_synth(
-            xs, a_i, a_f, tables["cola"], gain, res.valid_length, hop, capacity)),
-        "step": time_ms(lambda: engine(xs, lengths, gain)),
-    }
-    out["time_map_phase_snap_rest"] = (
-        out["grid_engine"] - out["pitch_kernel"] - out["synth_kernel"]
-    )
-    del speeds, grid
-    return out
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return None
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ from typing import Callable
 
 import torch
 
+from .. import trace
 from .timing import device_ms, floor_device_ms, launch_us, paired_ms, time_ms  # noqa: F401
 
 
@@ -91,12 +92,10 @@ def covered(first: torch.Tensor, length, total: int) -> int:
 
 def launched(name: str, fn: Callable):
     """fn()'s result and how many times it launched kernel `name`
-    (kernels.LAUNCHES)."""
-    from ..ops import kernels
-
-    before = kernels.LAUNCHES[name]
+    (trace.LAUNCHES)."""
+    before = trace.LAUNCHES[name]
     out = fn()
-    return out, kernels.LAUNCHES[name] - before
+    return out, trace.LAUNCHES[name] - before
 
 
 def run_main(doc: str, check: Callable, argv=None) -> int:

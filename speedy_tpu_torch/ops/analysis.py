@@ -197,10 +197,3 @@ def analyze(
     )
     return AnalysisResult(spec, normalized, feats, ch.tension)
 
-
-def analyze_batch(
-    x: torch.Tensor, cfg: SpeedyConfig, num_frames: int, integer_step: bool = False
-) -> AnalysisResult:
-    """analyze over a batch of equal-padded utterances x [B, L] with a
-    common frame count (the JAX package's vmap of analyze)."""
-    return analyze(x, cfg, num_frames, integer_step)

@@ -14,7 +14,7 @@ frames:
                    (one product with an [nC, nC] matrix).
 
 Powers are taken in float64 and cast once; everything else is float32.
-The tables and α go to the device once per (α, nC) (trace.upload_once).
+The tables and α go to the device once per (α, nC) (held.upload_once).
 Summation order differs from the scan, so results agree to float32
 round-off (held to the 2e-5 tension gate in tests/test_torch_frontend.py).
 """
@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import trace
+from .. import held
 
 _CHUNK = 64
 
@@ -61,10 +61,10 @@ def first_order_lowpass(
     dt, dev = x.dtype, x.device
     key = (float(alpha), nC)
     within, lead, across, init = (
-        trace.upload_once("lpf_tables", m, dt, dev, key=key + (i,))
+        held.upload_once("lpf_tables", m, dt, dev, key=key + (i,))
         for i, m in enumerate(_power_matrices(*key))
     )
-    a = trace.upload_once("lpf_alpha", float(alpha), dt, dev)
+    a = held.upload_once("lpf_alpha", float(alpha), dt, dev)
     b = (1.0 - a) * x
     if nC * _CHUNK != T:
         b = torch.cat([b, b.new_zeros(B, nC * _CHUNK - T)], dim=1)

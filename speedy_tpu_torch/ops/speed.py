@@ -5,7 +5,7 @@ Scalars enter the arithmetic as 0-dim float32 tensors, so every step runs
 the same float32 operations as the JAX package (a Python float would be
 combined in float64 first); branches are taken on the Python values, so
 nothing is read back from the device. Each scalar is uploaded once per
-value, dtype and device (trace.upload_once) and held there, so only the
+value, dtype and device (held.upload_once) and held there, so only the
 first call with a value waits for the stream. The sequential law's frame
 loop is kernels.speed_law on the card (csrc/speed_law.cu, the same
 operations in the same order) and kernels.speed_law_reference, a loop of
@@ -19,8 +19,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .. import config as C
-from .. import trace
+from .. import held, trace
 from . import kernels
+
+# Jacobi iterations of speed_from_tension_parallel.
+PARALLEL_ITERS = 8
 
 
 class _Law(NamedTuple):
@@ -34,7 +37,7 @@ class _Law(NamedTuple):
 
 
 def _law(like: torch.Tensor, global_rate, fb, nl) -> _Law:
-    f = lambda v: trace.upload_once("law_scalars", float(v), like.dtype, like.device)
+    f = lambda v: held.upload_once("law_scalars", float(v), like.dtype, like.device)
     return _Law(
         float(global_rate) > 1.0, float(fb) > 0.0, f(global_rate), f(fb),
         f(nl), f(C.MIN_SPEED), f(1.0 / C.FRAME_RATE_HZ),
@@ -102,7 +105,6 @@ def speed_from_tension_parallel(
     global_rate: float,
     duration_feedback_strength: float = 0.0,
     nonlinear_factor: float = 1.0,
-    num_iters: int = 8,
     run_chain: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Parallel fixed-point solver for the law, tension [B, T] -> speeds.
@@ -110,8 +112,8 @@ def speed_from_tension_parallel(
     Jacobi iteration: evaluate every requested speed from the previous
     iterate's excess durations, then recompute the durations with an
     exclusive prefix sum (torch.cumsum; the JAX package used a triangle
-    matmul). The feedback is a contraction, so 8 iterations reach the
-    sequential law to float32 round-off.
+    matmul). The feedback is a contraction, so PARALLEL_ITERS (8)
+    iterations reach the sequential law to float32 round-off.
 
     VALID ONLY FOR global_rate > 1: at sub-unity rates the kMinimumSpeed
     clamp makes the iteration expand (speedy_tpu/ops/speed.py:111-113);
@@ -124,7 +126,7 @@ def speed_from_tension_parallel(
     """
     if not float(global_rate) > 1.0:
         raise ValueError("the parallel speed law needs global_rate > 1")
-    args = (global_rate, duration_feedback_strength, nonlinear_factor, num_iters)
+    args = (global_rate, duration_feedback_strength, nonlinear_factor, PARALLEL_ITERS)
     if run_chain is None:
         return _parallel_law(tension, *args)
     return run_chain(lambda t: _parallel_law(t, *args), tension, static=args)

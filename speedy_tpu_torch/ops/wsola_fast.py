@@ -32,7 +32,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import trace
+from .. import held, trace
 from ..config import SpeedyConfig
 from . import kernels
 from .dft import no_tf32
@@ -122,14 +122,11 @@ def pitch_grid_stride(cfg: SpeedyConfig, hop: Optional[int] = None) -> int:
     return _grid_stride(hop, cfg.wsola_max_period)
 
 
-def plan_grid(
-    cfg: SpeedyConfig, input_len: int, min_speed_bound: float, hop: Optional[int] = None
-):
+def plan_grid(cfg: SpeedyConfig, input_len: int, min_speed_bound: float):
     """(hop, capacity, num_chunks) for a length-input_len utterance: one
     frame step per hop (10 ms), capacity for the slowest planned speed,
     rounded to whole 2*hop windows."""
-    if hop is None:
-        hop = default_hop(cfg)
+    hop = default_hop(cfg)
     capacity = (
         int(np.ceil(input_len / max(min_speed_bound, 0.01))) + 4 * cfg.wsola_max_period
     )
@@ -171,7 +168,7 @@ def grid_positions(
     lens_f = input_lengths.to(dt)
 
     # ---- 1. time map ----
-    inv_s = trace.upload_once("frame_step", float(frame_step), dt, dev) / speeds
+    inv_s = held.upload_once("frame_step", float(frame_step), dt, dev) / speeds
     obnd = torch.cat([inv_s.new_zeros(B, 1), torch.cumsum(inv_s, dim=1)], dim=1)
     total_frames = torch.clamp(lens // frame_step, 0, n_frames)
     tail = (lens - total_frames * frame_step).to(dt)
@@ -383,10 +380,7 @@ def time_scale_grid(
     x,
     speeds,
     cfg: SpeedyConfig,
-    input_length: Optional[int] = None,
     min_speed_bound: float = 0.25,
-    hop: Optional[int] = None,
-    capacity: Optional[int] = None,
     max_speed_bound: Optional[float] = None,
     *,
     device="cuda",
@@ -408,14 +402,10 @@ def time_scale_grid(
         no_tf32()
     x = trace.upload("grid_input", x, dtype=torch.float32, device=dev).contiguous()
     L = x.shape[-1]
-    if input_length is None:
-        input_length = L
-    h, cap, K = plan_grid(cfg, L, min_speed_bound, hop)
-    if capacity is not None:
-        cap, K = capacity, capacity // h + 1
+    h, cap, K = plan_grid(cfg, L, min_speed_bound)
     res = wsola_grid_batch(
         x[None, :],
-        trace.upload("input_length", [input_length], dtype=torch.int32, device=dev),
+        trace.upload("input_length", [L], dtype=torch.int32, device=dev),
         trace.upload("grid_speeds", speeds, dtype=torch.float32, device=dev).reshape(1, -1),
         cfg.wsola_min_period,
         cfg.wsola_max_period,

@@ -26,9 +26,9 @@ import torch
 from torch import nn
 
 from .. import config as C
-from .. import trace
+from .. import held, trace
 from ..config import SpeedyConfig
-from ..ops import analysis, analysis_fft, dft, kernels, wsola, wsola_fast
+from ..ops import analysis, analysis_fft, dft, kernels, wsola_fast
 from ..ops.dft import no_tf32
 from ..ops.speed import speed_from_tension, speed_from_tension_parallel
 from .graphs import StepGraphs
@@ -214,7 +214,7 @@ def batched_nonlinear_speedup(
         min_speed_bound = _default_min_speed_bound(global_speed)
     if tables is None:
         tables = device_tables(cfg, dev)
-    minp, maxp, _, _ = wsola.plan(cfg, L, min_speed_bound)
+    minp, maxp = cfg.wsola_min_period, cfg.wsola_max_period
 
     tension = batched_analysis(xs, cfg, T, gain, tables, reference, graphs)
     if tension.shape[1] == 0:
@@ -242,7 +242,7 @@ def batched_nonlinear_speedup(
     )
     speeds = _mask_speeds(speeds, valid_tension)
     # Utterances too short for any tension frame run at the global speed.
-    rg = trace.upload_once("rg", float(global_speed), dt, dev)
+    rg = held.upload_once("rg", float(global_speed), dt, dev)
     speeds = torch.where((valid_tension > 0)[:, None], speeds, rg)
     # The planner sizes capacity by min_speed_bound, so speeds are floored
     # there (a no-op for speed-ups, where the law guarantees >= 1).

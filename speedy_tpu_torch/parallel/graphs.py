@@ -22,7 +22,7 @@ caller clones what it keeps. static holds the Python values fn reads
 (sizes, rates); they are fixed at capture, and another value raises. The
 graphs of one StepGraphs share one memory pool, so they are replayed once
 each a step, in the order they were captured, on one stream. Each graph
-holds the constants it read through trace.upload_once, whose LRU may drop
+holds the constants it read through held.upload_once, whose LRU may drop
 them. No chain is captured while a profiler records: run() then calls fn.
 
 trace.GRAPHS counts each capture and each replay by chain.
@@ -35,7 +35,7 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from .. import trace
+from .. import held, trace
 
 
 class _Chain(NamedTuple):
@@ -43,7 +43,7 @@ class _Chain(NamedTuple):
     static: tuple                      # the Python values fn read at capture
     inputs: Tuple[torch.Tensor, ...]   # the graph's static inputs
     outputs: object                    # what fn returned under capture
-    held: List[torch.Tensor]           # the constants fn read (trace.upload_once)
+    held: List[torch.Tensor]           # the constants fn read (held.upload_once)
 
 
 def _tensors(outputs) -> tuple:
@@ -91,11 +91,11 @@ class StepGraphs:
         ins = tuple(x if self._owns(x) else x.clone() for x in inputs)
         graph = torch.cuda.CUDAGraph()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.device(self.device), trace.held_reads() as held:
+        with torch.cuda.device(self.device), held.held_reads() as reads:
             with torch.cuda.stream(self.stream):
                 fn(*ins)
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 outputs = fn(*ins)
         _count(name + ":capture")
-        return _Chain(graph, static, ins, outputs, held)
+        return _Chain(graph, static, ins, outputs, reads)

@@ -19,15 +19,6 @@ SYNC_BYTES[site], on every device (so the CPU tests hold the counts), and
 while a profiler records it runs inside a "speedy:sync:<site>" span, in
 its layer's span.
 
-Held constants. upload_once() uploads a constant once per (site, key,
-dtype, device) and hands the same device tensor to every later call, so a
-warm step makes none of those waits; each later call adds one to
-HITS[site] instead of SYNCS[site]. It holds at most HELD_MAX tensors and
-HELD_MAX_BYTES in all, dropping the least recently used; clear_held()
-drops them all. held_reads() collects every tensor upload_once() hands
-out inside its block, so that what keeps using one (a CUDA graph that
-captured it) can hold its own reference.
-
 Graphs. GRAPHS counts the batch engine's CUDA graphs of its op chains
 (parallel/graphs.py) by chain and event, as "<chain>:capture" and
 "<chain>:replay" ("tension", "law", "grid"): a step on the graphed path
@@ -41,17 +32,15 @@ body its plan picked, as "<kernel>:<body>": kernel 1's are
 profiler records each of its launches runs inside a
 "speedy:analysis_kernel:<body>" span. LOAD_S is the host seconds of
 ops/_build.load()'s one call, LOAD_BUILT whether that call compiled the
-kernels (False: it found them built). reset() zeroes the counts, HITS,
-BODIES and GRAPHS among them, and leaves the held constants.
+kernels (False: it found them built). reset() zeroes the counts, BODIES
+and GRAPHS among them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import threading
-from collections import OrderedDict
-from typing import Dict, Hashable, List, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -71,8 +60,6 @@ BODIES: Dict[str, int] = {}
 # Host-blocking transfers and their bytes since the last reset, by site.
 SYNCS: Dict[str, int] = {}
 SYNC_BYTES: Dict[str, int] = {}
-# upload_once() calls served by a held tensor since the last reset, by site.
-HITS: Dict[str, int] = {}
 # Captures and replays of the batch engine's graphs since the last reset,
 # as "<chain>:capture" and "<chain>:replay".
 GRAPHS: Dict[str, int] = {}
@@ -80,13 +67,6 @@ LOAD_S: Optional[float] = None
 LOAD_BUILT: Optional[bool] = None
 
 _OFF = contextlib.nullcontext()
-
-HELD_MAX = 256
-HELD_MAX_BYTES = 1 << 28
-_held: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()  # least recent first
-_held_bytes = 0
-_held_lock = threading.Lock()
-_readers: List[List[torch.Tensor]] = []  # the lists of open held_reads() blocks
 
 
 def layer(name: str):
@@ -144,66 +124,11 @@ def read_back(site: str, t: torch.Tensor, convert=torch.Tensor.cpu):
     return out
 
 
-def upload_once(site: str, data, dtype: torch.dtype, device,
-                key: Optional[Hashable] = None) -> torch.Tensor:
-    """upload(site, data, dtype, device) on the first call for (site, key,
-    dtype, device), and the tensor that call made on every later one,
-    counted in HITS[site]. key fixes data's value: a number is its own key
-    by type and repr (so 0.0 and -0.0 are two), anything else needs one.
-    device names one device ("cuda:0", not "cuda"). Every caller shares
-    the held tensor, so none may write to it."""
-    global _held_bytes
-    if key is None:
-        if not isinstance(data, (int, float)):
-            raise TypeError(f"upload_once({site!r}): a {type(data).__name__} needs a key")
-        key = (type(data), repr(data))
-    dev = torch.device(device)
-    k = (site, key, dtype, dev)
-    with _held_lock:
-        out = _held.get(k)
-        if out is not None:
-            _held.move_to_end(k)
-            HITS[site] = HITS.get(site, 0) + 1
-    if out is None:
-        out = upload(site, data, dtype=dtype, device=dev)
-        with _held_lock:
-            if k not in _held:
-                _held[k] = out
-                _held_bytes += out.nbytes
-            while len(_held) > 1 and (len(_held) > HELD_MAX or _held_bytes > HELD_MAX_BYTES):
-                _held_bytes -= _held.popitem(last=False)[1].nbytes
-    for reads in _readers:
-        reads.append(out)
-    return out
-
-
-@contextlib.contextmanager
-def held_reads():
-    """A list that collects every tensor upload_once() returns while the
-    block runs."""
-    reads: List[torch.Tensor] = []
-    _readers.append(reads)
-    try:
-        yield reads
-    finally:
-        _readers.remove(reads)
-
-
-def clear_held() -> None:
-    """Drop every tensor upload_once() holds: the next call of each site
-    uploads again."""
-    global _held_bytes
-    with _held_lock:
-        _held.clear()
-        _held_bytes = 0
-
-
 def reset() -> None:
-    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES, HITS and GRAPHS."""
+    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES and GRAPHS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BODIES.clear()
     GRAPHS.clear()
     SYNCS.clear()
     SYNC_BYTES.clear()
-    HITS.clear()

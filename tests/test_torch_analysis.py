@@ -28,7 +28,6 @@ from speedy_tpu.ops import hysteresis as jhyst
 from speedy_tpu_torch import analyze
 from speedy_tpu_torch.config import SpeedyConfig
 from speedy_tpu_torch.ops import dft, framing, hysteresis
-from speedy_tpu_torch.ops.analysis import analyze_batch
 
 from torch_port_util import assert_tension_gate, speech_families
 
@@ -126,7 +125,7 @@ def test_analyze_batch_matches_per_utterance():
     cfg = SpeedyConfig(16000)
     xs = speech_families(12000, 16000, 3, seed=9)
     T = cfg.num_frames(12000, integer_step=True)
-    rb = analyze_batch(torch.as_tensor(xs), cfg, T, integer_step=True)
+    rb = analyze(torch.as_tensor(xs), cfg, T, integer_step=True)
     for b in range(3):
         r1 = analyze(torch.as_tensor(xs[b]), cfg, T, integer_step=True)
         for got, want in zip(rb, r1):

@@ -18,6 +18,7 @@ from speedy_tpu.config import SpeedyConfig as JConfig
 from speedy_tpu.ops import filters as jfilters
 from speedy_tpu.parallel import batch as jbatch
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.config import SpeedyConfig
 from speedy_tpu_torch.ops import analysis, analysis_fft, dft, kernels
 from speedy_tpu_torch.parallel import batch
@@ -314,9 +315,9 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     tab = batch.device_tables(cfg, "cpu")
     args = (torch.as_tensor(xs), torch.as_tensor(GAIN), tab["hamming"], tab["dft_cos"],
             tab["dft_sin"], tab["analysis_fft"], T, cfg.frame_step_int)
-    kernels.reset_launches()
+    trace.reset()
     got = kernels.analysis_energy_lsd(*args)
     want = kernels.analysis_energy_lsd_reference(*args)
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
     for g, w in zip(got, want):
         assert torch.equal(g, w)

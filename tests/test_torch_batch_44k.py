@@ -102,13 +102,12 @@ def test_bodies_count_the_body_the_plan_picked(fake_kernel_1, sr, body):
     for n in (1, 2):
         _analysis(sr)
         assert trace.BODIES == {body: n}
-        assert kernels.LAUNCHES["analysis_energy_lsd"] == n
-    assert kernels.BODIES is trace.BODIES
+        assert trace.LAUNCHES["analysis_energy_lsd"] == n
     trace.reset()
     assert trace.BODIES == {}
     _analysis(sr)
-    kernels.reset_launches()
-    assert trace.BODIES == {} and not any(kernels.LAUNCHES.values())
+    trace.reset()
+    assert trace.BODIES == {} and not any(trace.LAUNCHES.values())
 
 
 def test_a_failed_launch_counts_no_body(fake_kernel_1, monkeypatch):
@@ -127,7 +126,7 @@ def test_the_plain_path_counts_no_body():
                                    port.SpeedyConfig(SR), 3.5, NL, FB, gain=gain,
                                    capacity_factor=CAP)
     assert trace.BODIES == {}
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
 
 
 def _ranges(prof, tmp_path):

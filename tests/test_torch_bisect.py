@@ -30,6 +30,7 @@ import torch
 
 from jax.experimental import pallas as pl
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.experiments import bisect_kernel, gather_bisect, synth_bisect
 from speedy_tpu_torch.ops import kernels, wsola_fast
 
@@ -402,6 +403,6 @@ def test_bisect_wrappers_check_their_arguments():
                              w_span=4096)
     with pytest.raises(ValueError, match="rows_per_block"):
         kernels.gather_bisect(x, s, n, "full", width=321, rows_per_block=0, w_span=4096)
-    kernels.reset_launches()
+    trace.reset()
     kernels.gather_bisect(x, s, n, "full", width=321, rows_per_block=128, w_span=4096)
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)

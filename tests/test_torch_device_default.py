@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from speedy_tpu_torch import SpeedyConfig, pipeline
+from speedy_tpu_torch import SpeedyConfig, pipeline, trace
 from speedy_tpu_torch.cli import compress_sound
 from speedy_tpu_torch.io import write_wave
 from speedy_tpu_torch.ops import analysis, kernels, wsola_fast
@@ -51,10 +51,10 @@ ENTRIES = {
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_entry_points_default_to_the_card(no_card, tmp_path, entry):
     assert inspect.signature(ENTRIES[entry]).parameters["device"].default == "cuda"
-    kernels.reset_launches()
+    trace.reset()
     with pytest.raises(RuntimeError, match="no CUDA device is available"):
         _calls(tmp_path)[entry]()
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
 
 
 def test_resolve_device_keeps_what_was_asked():

@@ -17,6 +17,7 @@ from speedy_tpu.ops import filters as jfilters
 from speedy_tpu.ops import speed as jspeed
 from speedy_tpu.parallel import batch as jbatch
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.config import SpeedyConfig
 from speedy_tpu_torch.ops import filters, kernels, speed
 from speedy_tpu_torch.ops.wsola_fast import pitch_grid_stride
@@ -65,7 +66,7 @@ def test_analysis_reference_matches_pallas_kernel(sr, L):
     n_out = int((dl > 2e-4 * max(scale, 1.0)).sum())
     rel = dl / (np.abs(l_k[:, 1:]) + 1.0)
     assert n_out <= 2 and rel.max() < 1e-2, (n_out, dl.max(), rel.max())
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("sr,L", [(16000, 48000), (22050, 44100)])

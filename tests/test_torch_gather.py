@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 
 import speedy_tpu.ops.pallas_kernels as pk
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.ops import kernels
 
 L = 12000
@@ -71,9 +72,9 @@ def test_gather_rows_matches_jax(interpret_pallas, width, kind, n_valid):
     x, starts = _case(width, kind)
     nv = N_VALID[n_valid]
     nv_t = None if nv is None else torch.tensor(nv, dtype=torch.int32)
-    kernels.reset_launches()
+    trace.reset()
     rows = kernels.gather_rows(torch.as_tensor(x), torch.as_tensor(starts), width, nv_t)
-    assert kernels.LAUNCHES["gather_rows"] == 0  # CPU tensors: the plain version
+    assert trace.LAUNCHES["gather_rows"] == 0  # CPU tensors: the plain version
     rows = rows.numpy()
     assert rows.shape == (3, 32, width) and rows.dtype == np.float32
     xj, sj = jnp.asarray(x), jnp.asarray(starts)

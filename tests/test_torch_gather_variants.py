@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 import speedy_tpu.ops.pallas_coalesced as pc
 import speedy_tpu.ops.pallas_kernels as pk
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.ops import kernels
 
 
@@ -55,9 +56,9 @@ def test_gather_rows_pipelined_matches_jax(interpret_pallas, width):
     starts = np.sort(rng.integers(0, L - width + 1, size=(B, K)), axis=1).astype(np.int32)
     starts[0, 0], starts[1, -1] = 0, L - width
     want = np.asarray(pk.gather_rows_pipelined(jnp.asarray(x), jnp.asarray(starts), width))
-    kernels.reset_launches()
+    trace.reset()
     got = kernels.gather_rows_pipelined(torch.as_tensor(x), torch.as_tensor(starts), width)
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -75,9 +76,9 @@ def test_gather_rows_coalesced_matches_jax(interpret_pallas, kind):
         starts = rng.integers(0, L - W - 2048, size=(B, K))
     starts = starts.astype(np.int32)
     want = np.asarray(pc.gather_rows_coalesced(jnp.asarray(x), jnp.asarray(starts), W))
-    kernels.reset_launches()
+    trace.reset()
     got = kernels.gather_rows_coalesced(torch.as_tensor(x), torch.as_tensor(starts), W)
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
     np.testing.assert_array_equal(got.numpy(), want)
     route = kernels.coalesced_span_blocks(torch.as_tensor(starts), W, 64, L)
     assert bool(route.all()) if kind == "sorted" else not bool(route.all())
@@ -125,9 +126,9 @@ def test_new_gathers_have_no_route_off_cpu_and_cuda(name):
     fn = getattr(kernels, name)
     x = torch.zeros(1, 1000, device="meta")
     starts = torch.zeros(1, 8, dtype=torch.int32, device="meta")
-    kernels.reset_launches()
+    trace.reset()
     with pytest.raises(ValueError, match="no kernel and no plain version"):
         fn(x, starts, 321, *extra)
     with pytest.raises(ValueError, match="several devices"):
         fn(torch.zeros(1, 1000), starts, 321, *extra)
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())

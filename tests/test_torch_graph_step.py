@@ -2,11 +2,11 @@
 
 On the CPU an engine never captures, its steps equal
 batched_nonlinear_speedup's bitwise, and trace.GRAPHS stays empty. The
-run_chain= hooks, trace.held_reads(), the engine's one-key policy and
-StepGraphs' own rules (what it captures, copies, counts and refuses) are
-held here on the CPU, StepGraphs with stand-ins for torch.cuda's graph
-objects; with a stand-in graph whose replay reruns the chain on its
-static tensors, the graphed step equals the eager one bitwise.
+run_chain= hooks, the engine's one-key policy and StepGraphs' own rules
+(what it captures, copies, counts and refuses) are held here on the CPU,
+StepGraphs with stand-ins for torch.cuda's graph objects; with a stand-in
+graph whose replay reruns the chain on its static tensors, the graphed
+step equals the eager one bitwise.
 
 The tests marked cuda need a card and skip without one. tests/conftest.py
 imports JAX, which the card's machine lacks, so there they run as
@@ -25,7 +25,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, trace
+from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, held, trace
 from speedy_tpu_torch.ops import kernels, speed, wsola_fast
 from speedy_tpu_torch.parallel import batch, graphs
 
@@ -138,18 +138,6 @@ def test_the_time_map_runs_through_run_chain_unchanged():
     (inputs, static), = calls
     assert inputs[0] is lengths and inputs[1] is speeds
     assert static[-1] == torch.float32
-
-
-def test_held_reads_collect_what_upload_once_hands_out_inside_the_block():
-    trace.clear_held()
-    before = trace.upload_once("t_reads", 1.0, torch.float32, "cpu")
-    with trace.held_reads() as reads:
-        hit = trace.upload_once("t_reads", 1.0, torch.float32, "cpu")
-        miss = trace.upload_once("t_reads", 2.0, torch.float32, "cpu")
-    trace.upload_once("t_reads", 3.0, torch.float32, "cpu")
-    assert hit is before and len(reads) == 2
-    assert reads[0] is hit and reads[1] is miss
-    assert trace._readers == []
 
 
 class _Graph:
@@ -292,11 +280,11 @@ def test_no_capture_while_a_profiler_records(cpu_graphs):
 
 def test_a_chain_holds_the_constants_it_read(cpu_graphs):
     def fn(x):
-        return x * trace.upload_once("t_graph_const", 0.5, torch.float32, "cpu")
+        return x * held.upload_once("t_graph_const", 0.5, torch.float32, "cpu")
 
     cpu_graphs.run("c", fn, torch.ones(2))
-    held = cpu_graphs.chains["c"].held
-    assert held and all(h is held[0] for h in held) and float(held[0]) == 0.5
+    kept = cpu_graphs.chains["c"].held
+    assert kept and all(h is kept[0] for h in kept) and float(kept[0]) == 0.5
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +355,7 @@ def test_the_graphs_survive_clear_held(card):
     lengths = torch.full((B,), L, dtype=torch.int32, device=card)
     xs, gain = _inputs(B, L, 2, card)
     _warm(engine, xs, lengths, gain)
-    trace.clear_held()
+    held.clear_held()
     torch.cuda.empty_cache()
     # Fill what the caching allocator gave back, so a constant the graphs
     # lost would read garbage: the constants are scalars and [64, 64]

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.ops import _build, kernels
 from speedy_tpu_torch.ops.wsola_fast import _cola_hann
 
@@ -27,11 +28,11 @@ def _synth_args(device):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    kernels.reset_launches()
+    trace.reset()
     args = _synth_args("cpu")
     out = kernels.gather_synth(*args)
     assert torch.equal(out, kernels.gather_synth_reference(*args))
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)
 
 
 def test_other_devices_raise():

@@ -9,6 +9,7 @@ import re
 import pytest
 import torch
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.ops import _build, kernels
 
 CSRC = pathlib.Path(_build.__file__).resolve().parent.parent / "csrc"
@@ -50,7 +51,7 @@ def test_bound_table_covers_every_entry_point(bound_table):
     names = {"speedy_" + name for name in bound_table}
     assert names == set(_build._SIGNATURES)
     assert names == c_entry_points()
-    assert set(bound_table) == set(kernels.LAUNCHES)
+    assert set(bound_table) == set(trace.LAUNCHES)
 
 
 def test_bound_table_sets_each_signature(bound_table):
@@ -92,9 +93,9 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(kernels, "_current_device", lambda: 0)
     monkeypatch.setattr(kernels, "_current_stream", lambda index: STREAM + index)
     monkeypatch.setattr(torch.cuda, "device", Context)
-    kernels.reset_launches()
+    trace.reset()
     yield entry, contexts
-    kernels.reset_launches()
+    trace.reset()
 
 
 def test_launch_passes_arguments_then_the_stream(fake_launch):
@@ -109,14 +110,14 @@ def test_launch_on_another_device_enters_its_context(fake_launch):
     kernels._launch("lane_roll", torch.device("cuda", 1), 11, 22, 64, 512, 266)
     assert contexts == [1]
     assert entry.calls == [(11, 22, 64, 512, 266, STREAM + 1)]
-    assert kernels.LAUNCHES["lane_roll"] == 1
+    assert trace.LAUNCHES["lane_roll"] == 1
 
 
 def test_launch_counts_one_on_success(fake_launch):
     for n in (1, 2):
         kernels._launch("lane_roll", torch.device("cuda", 0), 1, 2, 3, 4, 5)
-        assert kernels.LAUNCHES["lane_roll"] == n
-    assert sum(kernels.LAUNCHES.values()) == 2
+        assert trace.LAUNCHES["lane_roll"] == n
+    assert sum(trace.LAUNCHES.values()) == 2
 
 
 def test_launch_raises_on_an_error_and_counts_nothing(fake_launch):
@@ -125,7 +126,7 @@ def test_launch_raises_on_an_error_and_counts_nothing(fake_launch):
     with pytest.raises(RuntimeError, match=r"lane_roll: CUDA error 98 \(fake error 98\)"):
         kernels._launch("lane_roll", torch.device("cuda", 0), 1, 2, 3, 4, 5)
     assert len(entry.calls) == 1
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)
 
 
 def test_no_entry_point_grants_shared_memory_itself():

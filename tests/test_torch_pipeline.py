@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from speedy_tpu.config import SpeedyConfig as JConfig
 from speedy_tpu.parallel import batch as jbatch
 
-from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, batched_nonlinear_speedup
+from speedy_tpu_torch import SpeedupEngine, SpeedyConfig, batched_nonlinear_speedup, trace
 from speedy_tpu_torch.ops import kernels
 from speedy_tpu_torch.ops.wsola_fast import (
     grid_positions,
@@ -53,7 +53,7 @@ def test_pipeline_matches_jax(name):
         np.random.default_rng(2).uniform(0.5, 1.0, B).astype(np.float32)
         if use_gain else None
     )
-    kernels.reset_launches()
+    trace.reset()
 
     rj = jbatch.batched_nonlinear_speedup(
         jnp.asarray(xs), jnp.asarray(lengths), JConfig(sr), rate, 1.0, 0.1,
@@ -104,7 +104,7 @@ def test_pipeline_matches_jax(name):
     d = np.abs(fed - y_j)
     assert d.max() < 2e-3 and d.mean() < 1e-5, (d.max(), d.mean())
     # CPU tensors never reach a kernel.
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)
 
 
 def test_engine_matches_function_and_reference_flag():

@@ -30,6 +30,7 @@ import torch
 
 from jax.experimental import pallas as pl
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.experiments import (
     bf16_split_probe,
     lane1_blockspec_probe,
@@ -254,6 +255,6 @@ def test_probe_wrappers_check_their_arguments():
     meta = torch.zeros(2, 8, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel and no plain version"):
         kernels.narrow_operand_sum(meta, meta, meta, 1.0)
-    kernels.reset_launches()
+    trace.reset()
     kernels.lane_roll(torch.zeros(2, 8), 3)
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)

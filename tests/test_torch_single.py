@@ -32,8 +32,8 @@ from speedy_tpu_torch import (
     linear_time_scale,
     nonlinear_speedup,
     time_scale_grid,
+    trace,
 )
-from speedy_tpu_torch.ops import kernels
 
 from torch_port_util import (
     assert_singles_agree,
@@ -58,7 +58,7 @@ def test_time_scale_grid_matches_jax(sr, bounded):
     speeds = _speeds(cfg, L)
     bound = 6.6 if bounded else None
     ys_j, ys_t, d_fed = [], [], []
-    kernels.reset_launches()
+    trace.reset()
     for x in xs:
         rj = jwf.time_scale_grid(jnp.asarray(x), jnp.asarray(speeds), JConfig(sr),
                                  min_speed_bound=1.0, max_speed_bound=bound)
@@ -78,7 +78,7 @@ def test_time_scale_grid_matches_jax(sr, bounded):
     # One gate over the four utterances, as over a batch of them.
     d = np.concatenate(d_fed)
     assert d.max() < 2e-3 and d.mean() < 1e-5, (d.max(), d.mean())
-    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert trace.LAUNCHES == dict.fromkeys(trace.LAUNCHES, 0)
     assert_singles_agree(xs, ys_j, ys_t, [speeds] * 4, [speeds] * 4, cfg,
                          [1.0] * 4, bound)
 

@@ -36,7 +36,7 @@ from speedy_tpu.ops import wsola as jwsola
 from speedy_tpu.ops import wsola_fast as jwf
 from speedy_tpu.parallel import batch as jbatch
 
-from speedy_tpu_torch import SpeedyConfig
+from speedy_tpu_torch import SpeedyConfig, trace
 from speedy_tpu_torch.ops import kernels, wsola_fast
 
 from torch_port_util import single_pitch_grids, speech_families
@@ -101,11 +101,11 @@ def test_block_gathers_match_jax(interpret_pallas, kernel, width, n_valid):
     x, starts, R, w_span = _case(width)
     nv = N_VALID[n_valid]
     nv_t = None if nv is None else torch.tensor(nv, dtype=torch.int32)
-    kernels.reset_launches()
+    trace.reset()
     rows = getattr(kernels, kernel)(
         torch.as_tensor(x), torch.as_tensor(starts), width, R, w_span, nv_t
     ).numpy()
-    assert not any(kernels.LAUNCHES.values())  # CPU tensors: the plain version
+    assert not any(trace.LAUNCHES.values())  # CPU tensors: the plain version
     assert rows.shape == (3, 70, width) and rows.dtype == np.float32
     _check(rows, _jax_block_rows(width, nv), nv)
 
@@ -202,7 +202,7 @@ def test_span_route_matches_jax_bounded_engine(sr):
     L = int(1.5 * sr)
     speeds = _speeds(cfg, L)
     d = []
-    kernels.reset_launches()
+    trace.reset()
     for x in speech_families(L, sr, 4, seed=11):
         rj = jwf.time_scale_grid(jnp.asarray(x), jnp.asarray(speeds), JConfig(sr),
                                  min_speed_bound=1.0, max_speed_bound=6.6)
@@ -216,7 +216,7 @@ def test_span_route_matches_jax_bounded_engine(sr):
         d.append(np.abs(y - y_j))
     d = np.concatenate(d)
     assert d.max() < 2e-3 and d.mean() < 1e-5, (d.max(), d.mean())
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("sr", [16000, 44100])

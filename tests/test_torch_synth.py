@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import speedy_tpu.ops.pallas_kernels as pk
 from speedy_tpu.ops.wsola_fast import _cola_hann as jax_cola_hann
 
+from speedy_tpu_torch import trace
 from speedy_tpu_torch.ops import kernels
 from speedy_tpu_torch.ops.wsola_fast import _cola_hann
 
@@ -79,7 +80,7 @@ def test_gather_synth_matches_pallas_and_xla(hop, K):
         for ref in (pallas, xla):
             np.testing.assert_allclose(got[b, :v], ref[b, :v], rtol=0, atol=2e-5)
         assert not got[b, v:].any()
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(trace.LAUNCHES.values())
 
 
 def test_gather_synth_reads_zero_outside_signal():
