@@ -558,16 +558,23 @@ def synth_phase(kernels, synth_model, inputs, x60, dev) -> dict:
 # Rate label -> (sample rate, batch): 10 s utterances of the four families,
 # at the first benchmark's batch sizes but 22.05 kHz (PERF.md, Cells).
 FRONT_END_SHAPES = {"16kHz": (16000, 128), "22.05kHz": (22050, 8), "44.1kHz": (44100, 32)}
+# Kernel 1's FFT body where its teams walk long runs, at windows other than
+# 16 kHz's: W = 120 and 720 (teams of two warps) in steps of two frames,
+# W = 330 in steps of one. As at the short inputs, an lsd frame may be off
+# by a mask-edge flip (PR 20's body flips one at 8 kHz).
+LONG_RUN_SHAPES = {"8kHz B=64": (8000, 64), "22.05kHz B=64": (22050, 64),
+                   "48kHz B=64": (48000, 64)}
 
 
-def front_end_inputs(dev, rng) -> dict:
-    """Rate label -> (cfg, xs [B, 10 s] of the four families, gains drawn
-    uniform in [0.5, 1) from rng in FRONT_END_SHAPES' order)."""
+def front_end_inputs(dev, rng, shapes=FRONT_END_SHAPES) -> dict:
+    """Label -> (cfg, xs [B, 10 s] of the four families, gains drawn
+    uniform in [0.5, 1) from rng in the order of shapes, label -> (rate,
+    B))."""
     import torch
     from speedy_tpu_torch.config import SpeedyConfig
 
     out = {}
-    for label, (sr, B) in FRONT_END_SHAPES.items():
+    for label, (sr, B) in shapes.items():
         xs = torch.as_tensor(batch_of(bench_families(10 * sr, sr), B), device=dev)
         gain = torch.as_tensor(rng.uniform(0.5, 1.0, B).astype(np.float32), device=dev)
         out[label] = (SpeedyConfig(sr), xs, gain)
@@ -1542,6 +1549,15 @@ def main() -> int:
         x = short_input(sr, dev)
         check_analysis(kernels, batch, x, gain16[:2].contiguous(), cfg,
                        f"{sr / 1000:g}kHz B=2 L={2 * sr}", edge_frames=True)
+    for label, (cfg, x, gain) in front_end_inputs(dev, rng, LONG_RUN_SHAPES).items():
+        check_analysis(kernels, batch, x, gain, cfg, f"{label} L={x.shape[1]}",
+                       edge_frames=True)
+    # The FFT body's square root of a bin's power against sqrtf at every
+    # float it takes that path for (kernels.analysis_sqrt_check, which must
+    # find none).
+    mismatches = kernels.analysis_sqrt_check(dev)
+    check(mismatches == 0, "kernel 1's square root differs from sqrtf at", mismatches, "floats")
+    emit("analysis_sqrt", mismatches=mismatches)
     results["analysis_energy_lsd"]["bodies"] = {
         rate: analysis_fft.fft_plan(cfg.window_size).route
         for rate, (cfg, _, _) in inputs.items()}
@@ -1596,6 +1612,9 @@ def main() -> int:
     bodies = dict(trace.BODIES)
     check(bodies == {"analysis_energy_lsd:fft": 1}, "16 kHz kernel 1 left its FFT body",
           bodies)
+    computed, owned = trace.FRAMES["analysis_energy_lsd:fft"]
+    emit("main_path_frames", computed=computed, owned=owned,
+         recompute_share=1 - owned / computed)
     # Every later step replays the engine's graphs: the checks below hold
     # a replayed step.
     res, graphs = graphed_step(engine, (xs16, lengths, gain16), (launches, bodies, res),

@@ -14,8 +14,14 @@ checkout's kernels and timing them with this checkout's clocks
     utterances of the benchmark's four families), and kernel 2 also on
     the 60 s single call's input; kernel 1 also at 7, 12, 47.3 and 96 kHz
     B=2 x 2 s (chip_smoke.short_input), whose W run the direct sum (47.3
-    and 96 kHz in several rounds of pairs), and a sha256 of its energy
-    and lsd bytes at 44.1 kHz B=32 and at each of those (analysis_digests);
+    and 96 kHz in several rounds of pairs), and at 8, 11.025, 24, 32 and
+    48 kHz B=2 x 2 s, and 16 kHz's, whose W run the FFT body in steps of
+    one frame, and at 8, 22.05 and 48 kHz B=64 x 10 s
+    (chip_smoke.LONG_RUN_SHAPES), where the FFT body's teams walk long
+    runs, and a sha256 of its energy and lsd bytes at 16 kHz
+    B=128, 22.05 kHz B=8, 44.1 kHz B=32 and at each of those
+    (analysis_digests): every W the FFT body has compiled in, on short
+    runs and on long ones, and the direct sum's;
   - where the checkout's plan chooses how a pair of bins reads the
     direct sum's twiddles, kernel 1's direct body at 44.1 kHz B=32 and
     47.3 kHz B=2 in both forms, one twiddle load for both bins (the
@@ -63,6 +69,7 @@ is one such process: the checkout at ROOT, one JSON line.
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import pathlib
@@ -263,9 +270,14 @@ def probe_rows(chip_smoke, kernels, dev) -> tuple:
 
 
 SYNTH_RUNS = (1, 2, 3, 4, 6, 8, 12, 16)
-# Kernel 1's direct-sum rates beside the front-end shapes: label -> rate.
+# Kernel 1's rates beside the front-end shapes: label -> rate. The direct
+# sum's (7, 12, 47.3, 96 kHz) and the FFT windows the front-end shapes
+# leave out (W = 120, 165, 360, 480, 720), and 16 kHz's in steps of one
+# frame.
 SHORT_RATES = {"7kHz B=2": 7000, "12kHz B=2": 12000, "47.3kHz B=2": 47300,
-               "96kHz B=2": 96000}
+               "96kHz B=2": 96000, "8kHz B=2": 8000, "11.025kHz B=2": 11025,
+               "16kHz B=2": 16000, "24kHz B=2": 24000, "32kHz B=2": 32000,
+               "48kHz B=2": 48000}
 
 
 def short_cases(chip_smoke, inputs, dev) -> dict:
@@ -315,6 +327,11 @@ def direct_forms(chip_smoke, kernels, batch, _build, cases, dev) -> dict:
         return {}
     clock = this_timing()
     fn = _build.load()["analysis_energy_lsd"]
+    # A checkout whose entry point reports the blocks it launched takes an
+    # int's address after eps.
+    blocks = ctypes.c_int(0)
+    report = ((ctypes.addressof(blocks),)
+              if len(_build._SIGNATURES["speedy_analysis_energy_lsd"]) == 15 else ())
     rows = {}
     for label, (cfg, x, gain) in cases.items():
         T = cfg.num_frames(x.shape[1], integer_step=True)
@@ -332,7 +349,7 @@ def direct_forms(chip_smoke, kernels, batch, _build, cases, dev) -> dict:
         forms = {"mirrored_ms": 1, "own_entries_ms": 0}
         calls = {}
         for key, code in forms.items():
-            calls[key] = (lambda c: lambda: fn(*ptrs, B, L, T, W, step, c, eps,
+            calls[key] = (lambda c: lambda: fn(*ptrs, B, L, T, W, step, c, eps, *report,
                                                torch._C._cuda_getCurrentRawStream(dev.index)))(code)
             e.fill_(float("nan"))
             l.fill_(float("nan"))
@@ -490,6 +507,10 @@ def measure(root: str) -> dict:
     for label, (cfg, x, gain) in short.items():
         rows["analysis_energy_lsd"][label] = chip_smoke.check_analysis(
             kernels, batch, x, gain, cfg, f"{label} L={x.shape[1]}", edge_frames=True)
+    long_runs = chip_smoke.front_end_inputs(dev, rng, chip_smoke.LONG_RUN_SHAPES)
+    for label, (cfg, x, gain) in long_runs.items():
+        rows["analysis_energy_lsd"][label] = chip_smoke.check_analysis(
+            kernels, batch, x, gain, cfg, f"{label} L={x.shape[1]}", edge_frames=True)
     synth = synth_cases(chip_smoke, wsola_fast, inputs, dev)
     rows.update(launch_rows(chip_smoke, kernels, pipeline, inputs, synth, x60, dev))
     out = {name: {shape: {k: r[k] for k in KEYS if k in r} for shape, r in by_shape.items()}
@@ -498,7 +519,10 @@ def measure(root: str) -> dict:
     out["synth_bisect"], out["synth_bisect_digests"] = synth_bisect_rows(kernels, dev)
     out["law_digests"] = law_digests(chip_smoke, kernels, pipeline, inputs, x60, dev)
     out["analysis_digests"] = analysis_digests(
-        chip_smoke, kernels, batch, {"44.1kHz B=32": inputs["44.1kHz"], **short})
+        chip_smoke, kernels, batch, {"16kHz B=128": inputs["16kHz"],
+                                     "22.05kHz B=8": inputs["22.05kHz"],
+                                     "44.1kHz B=32": inputs["44.1kHz"], **short,
+                                     **long_runs})
     out["synth_runs"] = synth_runs(chip_smoke, kernels, _build, synth, dev)
     probes, out["probe_digests"] = probe_rows(chip_smoke, kernels, dev)
     out.update(probes)

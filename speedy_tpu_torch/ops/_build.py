@@ -45,7 +45,8 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C entry points: argument types, all returning a cudaError_t as int.
 _SIGNATURES = {
-    "speedy_analysis_energy_lsd": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "speedy_analysis_energy_lsd": [_P] * 6 + [_I] * 6 + [_F, _P, _P],
+    "speedy_analysis_sqrt_check": [_P, _P],
     "speedy_pitch_ssd": [_P] * 3 + [_I] * 7 + [_P],
     "speedy_gather_synth": [_P] * 7 + [_I] * 6 + [_P],
     "speedy_gather_rows": [_P] * 4 + [_I] * 4 + [_P],

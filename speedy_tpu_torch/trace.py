@@ -30,17 +30,21 @@ PyTorch's kernels are not in it). BODIES splits a kernel's launches by the
 body its plan picked, as "<kernel>:<body>": kernel 1's are
 "analysis_energy_lsd:fft" and "analysis_energy_lsd:direct", and while a
 profiler records each of its launches runs inside a
-"speedy:analysis_kernel:<body>" span. LOAD_S is the host seconds of
+"speedy:analysis_kernel:<body>" span. FRAMES holds, under the same keys,
+kernel 1's frames computed and frames owned, [computed, owned]: a launch
+owns B*T frames and computes them and, in every block but a row's first,
+the frame before the block's own again (the entry point reports the
+blocks a row it launched), so the recompute share is 1 - owned / computed. LOAD_S is the host seconds of
 ops/_build.load()'s one call, LOAD_BUILT whether that call compiled the
-kernels (False: it found them built). reset() zeroes the counts, BODIES
-and GRAPHS among them.
+kernels (False: it found them built). reset() zeroes the counts, BODIES,
+FRAMES and GRAPHS among them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -54,9 +58,13 @@ LAUNCHES: Dict[str, int] = {
     "gather_rows_coalesced": 0, "bf16_split_matmul": 0, "narrow_operand_sum": 0,
     "lane_roll": 0, "transpose_cols": 0, "gather_bisect": 0, "synth_bisect": 0,
     "bisect_span_rows": 0, "speed_law": 0, "speed_law_division_check": 0,
+    "analysis_sqrt_check": 0,
 }
 # Launches since the last reset, by kernel and the body its plan picked.
 BODIES: Dict[str, int] = {}
+# Frames computed and owned since the last reset, [computed, owned], under
+# BODIES' keys.
+FRAMES: Dict[str, List[int]] = {}
 # Host-blocking transfers and their bytes since the last reset, by site.
 SYNCS: Dict[str, int] = {}
 SYNC_BYTES: Dict[str, int] = {}
@@ -124,11 +132,19 @@ def read_back(site: str, t: torch.Tensor, convert=torch.Tensor.cpu):
     return out
 
 
+def count_frames(key: str, computed: int, owned: int) -> None:
+    """Add one launch's frames computed and owned to FRAMES[key]."""
+    got = FRAMES.setdefault(key, [0, 0])
+    got[0] += computed
+    got[1] += owned
+
+
 def reset() -> None:
-    """Zero LAUNCHES and empty BODIES, SYNCS, SYNC_BYTES and GRAPHS."""
+    """Zero LAUNCHES and empty BODIES, FRAMES, SYNCS, SYNC_BYTES and GRAPHS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BODIES.clear()
+    FRAMES.clear()
     GRAPHS.clear()
     SYNCS.clear()
     SYNC_BYTES.clear()

@@ -135,7 +135,7 @@ def test_compiled_windows_match_the_kernel_source():
     """csrc/analysis.cu's fft_kernel_for has a body for exactly the W of
     FFT_WINDOWS, the windows of the sample rates they stand for."""
     src = (pathlib.Path(analysis_fft.__file__).parent.parent / "csrc" / "analysis.cu")
-    cases = re.findall(r"case (\d+): return fft_kernel<(\d+)>;", src.read_text())
+    cases = re.findall(r"case (\d+): return fft_kernel_at<(\d+)>\(F\);", src.read_text())
     assert all(a == b for a, b in cases)
     assert sorted(int(a) for a, _ in cases) == sorted(analysis_fft.FFT_WINDOWS)
     rates = (8000, 11025, 16000, 22050, 24000, 32000, 48000)
@@ -321,3 +321,14 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert not any(trace.LAUNCHES.values())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_sqrt_check_runs_on_the_card_only():
+    """The FFT body's square root of a bin's power is the card's reciprocal
+    square root approximation, proved against sqrtf on the card
+    (kernels.analysis_sqrt_check); the CPU has no card to run the proof on
+    and raises, launching nothing."""
+    trace.reset()
+    with pytest.raises(ValueError, match="on the card"):
+        kernels.analysis_sqrt_check("cpu")
+    assert not any(trace.LAUNCHES.values())

@@ -29,6 +29,7 @@ SR = 44100
 B, L = 4, 2 * SR
 NL, FB, CAP = 1.0, 0.1, 1.33
 DIRECT, FFT = "analysis_energy_lsd:direct", "analysis_energy_lsd:fft"
+BLOCKS = 3  # the blocks a row the faked launch reports
 
 
 def _inputs(sr=SR, n=L):
@@ -70,11 +71,13 @@ def test_the_rates_sizes_are_the_references():
     assert entry.shapes["n_grid"] == -(-(441000 + 2 * 678) // 1408)
 
 
-def _zero_outputs(x, gain, hamming, table, energy, lsd, b, n, t, w, step, code, eps,
+def _zero_outputs(x, gain, hamming, table, energy, lsd, b, n, t, w, step, code, eps, blocks,
                   stream):
-    """Kernel 1's C entry point, faked: energy and lsd set to 0."""
+    """Kernel 1's C entry point, faked: energy and lsd set to 0, BLOCKS
+    blocks a row reported."""
     ctypes.memset(energy, 0, b * t * 4)
     ctypes.memset(lsd, 0, b * t * 4)
+    ctypes.c_int.from_address(blocks).value = BLOCKS
     return 0
 
 
@@ -117,6 +120,57 @@ def test_a_failed_launch_counts_no_body(fake_kernel_1, monkeypatch):
     with pytest.raises(RuntimeError, match="analysis_energy_lsd: CUDA error 98"):
         _analysis(SR)
     assert trace.BODIES == {}
+
+
+def _frames(sr, n=L):
+    return port.SpeedyConfig(sr).num_frames(n, integer_step=True)
+
+
+@pytest.mark.parametrize("sr,body", [(44100, DIRECT), (16000, FFT)])
+def test_frames_count_what_the_body_computes_and_owns(fake_kernel_1, sr, body):
+    """A launch owns B*T frames and computes, besides, the frame before the
+    own ones of every block but a row's first, from the blocks a row its
+    entry point reports."""
+    T = _frames(sr)
+    for n in (1, 2):
+        _analysis(sr)
+        assert trace.FRAMES == {body: [n * B * (T + BLOCKS - 1), n * B * T]}
+    trace.reset()
+    assert trace.FRAMES == {}
+
+
+@pytest.mark.parametrize("sr", [44100, 16000])
+def test_the_entry_point_reports_into_a_fresh_int(fake_kernel_1, monkeypatch, sr):
+    """Each launch hands the entry point the address of an int of its own,
+    zero until the entry point writes it."""
+    seen = []
+
+    def entry(*args):
+        seen.append((args[13], ctypes.c_int.from_address(args[13]).value))
+        return _zero_outputs(*args)
+
+    monkeypatch.setattr(_build, "load", lambda: {"analysis_energy_lsd": entry})
+    _analysis(sr)
+    _analysis(sr)
+    assert [v for _, v in seen] == [0, 0]
+    assert len(seen) == 2 and seen[0][0] != 0 and seen[1][0] != 0
+
+
+def test_a_failed_launch_counts_no_frames(fake_kernel_1, monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda: {"analysis_energy_lsd": lambda *a: 98})
+    monkeypatch.setattr(_build, "_library", lambda: type("Lib", (), {
+        "speedy_cuda_error_string": staticmethod(lambda err: b"fake")})())
+    for sr in (SR, 16000):
+        with pytest.raises(RuntimeError, match="analysis_energy_lsd: CUDA error 98"):
+            _analysis(sr)
+    assert trace.FRAMES == {}
+
+
+def test_the_plain_path_counts_no_frames():
+    trace.reset()
+    for sr in (SR, 16000):
+        _analysis(sr)
+    assert trace.FRAMES == {} and trace.BODIES == {}
 
 
 def test_the_plain_path_counts_no_body():
