@@ -1614,7 +1614,7 @@ def main() -> int:
           bodies)
     computed, owned = trace.FRAMES["analysis_energy_lsd:fft"]
     emit("main_path_frames", computed=computed, owned=owned,
-         recompute_share=1 - owned / computed)
+         recompute_share=1 - owned / computed, plans=dict(trace.PLANS))
     # Every later step replays the engine's graphs: the checks below hold
     # a replayed step.
     res, graphs = graphed_step(engine, (xs16, lengths, gain16), (launches, bodies, res),

@@ -327,10 +327,11 @@ def direct_forms(chip_smoke, kernels, batch, _build, cases, dev) -> dict:
         return {}
     clock = this_timing()
     fn = _build.load()["analysis_energy_lsd"]
-    # A checkout whose entry point reports the blocks it launched takes an
-    # int's address after eps.
-    blocks = ctypes.c_int(0)
-    report = ((ctypes.addressof(blocks),)
+    # A checkout whose entry point reports what it launched takes the
+    # address of two ints after eps (one, the blocks a row, before the
+    # frames parameter was reported too).
+    launched = (ctypes.c_int * 2)()
+    report = ((ctypes.addressof(launched),)
               if len(_build._SIGNATURES["speedy_analysis_energy_lsd"]) == 15 else ())
     rows = {}
     for label, (cfg, x, gain) in cases.items():

@@ -34,10 +34,17 @@ profiler records each of its launches runs inside a
 kernel 1's frames computed and frames owned, [computed, owned]: a launch
 owns B*T frames and computes them and, in every block but a row's first,
 the frame before the block's own again (the entry point reports the
-blocks a row it launched), so the recompute share is 1 - owned / computed. LOAD_S is the host seconds of
+blocks a row it launched), so the recompute share is 1 - owned / computed.
+PLANS counts kernel 1's launches by its plan as launched, as
+"<kernel>:<body>:<W>x<F>": the window W and the frames parameter F of the
+body the entry point reports it ran, which is the body's name on the card
+("analysis_energy_lsd:fft:330x1" is fft_kernel<330, 1>, a team's frames a
+step; "analysis_energy_lsd:direct:661x16" is direct_kernel<..., 16>, a
+thread's frames). The step F is chosen in C from the grid and the card, so
+only this count shows it on the host. LOAD_S is the host seconds of
 ops/_build.load()'s one call, LOAD_BUILT whether that call compiled the
 kernels (False: it found them built). reset() zeroes the counts, BODIES,
-FRAMES and GRAPHS among them.
+FRAMES, PLANS and GRAPHS among them.
 """
 
 from __future__ import annotations
@@ -65,6 +72,9 @@ BODIES: Dict[str, int] = {}
 # Frames computed and owned since the last reset, [computed, owned], under
 # BODIES' keys.
 FRAMES: Dict[str, List[int]] = {}
+# Launches since the last reset, by kernel, body, window and frames
+# parameter, as "<kernel>:<body>:<W>x<F>".
+PLANS: Dict[str, int] = {}
 # Host-blocking transfers and their bytes since the last reset, by site.
 SYNCS: Dict[str, int] = {}
 SYNC_BYTES: Dict[str, int] = {}
@@ -139,12 +149,21 @@ def count_frames(key: str, computed: int, owned: int) -> None:
     got[1] += owned
 
 
+def count_plan(key: str, window: int, frames: int) -> None:
+    """Add one launch of body key (BODIES' keys) at window W and frames
+    parameter F to PLANS["<key>:<W>x<F>"]."""
+    plan = f"{key}:{window}x{frames}"
+    PLANS[plan] = PLANS.get(plan, 0) + 1
+
+
 def reset() -> None:
-    """Zero LAUNCHES and empty BODIES, FRAMES, SYNCS, SYNC_BYTES and GRAPHS."""
+    """Zero LAUNCHES and empty BODIES, FRAMES, PLANS, SYNCS, SYNC_BYTES and
+    GRAPHS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BODIES.clear()
     FRAMES.clear()
+    PLANS.clear()
     GRAPHS.clear()
     SYNCS.clear()
     SYNC_BYTES.clear()

@@ -141,18 +141,19 @@ def test_frames_count_what_the_body_computes_and_owns(fake_kernel_1, sr, body):
 
 @pytest.mark.parametrize("sr", [44100, 16000])
 def test_the_entry_point_reports_into_a_fresh_int(fake_kernel_1, monkeypatch, sr):
-    """Each launch hands the entry point the address of an int of its own,
-    zero until the entry point writes it."""
+    """Each launch hands the entry point the address of two ints of its own
+    (the blocks a row, the body's frames parameter), zero until the entry
+    point writes them."""
     seen = []
 
     def entry(*args):
-        seen.append((args[13], ctypes.c_int.from_address(args[13]).value))
+        seen.append((args[13], list((ctypes.c_int * 2).from_address(args[13]))))
         return _zero_outputs(*args)
 
     monkeypatch.setattr(_build, "load", lambda: {"analysis_energy_lsd": entry})
     _analysis(sr)
     _analysis(sr)
-    assert [v for _, v in seen] == [0, 0]
+    assert [v for _, v in seen] == [[0, 0], [0, 0]]
     assert len(seen) == 2 and seen[0][0] != 0 and seen[1][0] != 0
 
 

@@ -247,9 +247,24 @@ def test_launches_are_the_trace_modules_dict(monkeypatch):
     trace.SYNCS["x"] = 1
     trace.SYNC_BYTES["x"] = 4
     trace.GRAPHS["law:replay"] = 1
+    trace.PLANS["pitch_ssd:x:1x1"] = 1
     trace.reset()
     assert not any(trace.LAUNCHES.values())
     assert trace.BODIES == trace.SYNCS == trace.SYNC_BYTES == trace.GRAPHS == {}
+    assert trace.PLANS == {}
+
+
+def test_plans_count_launches_by_body_window_and_frames():
+    trace.reset()
+    fft, direct = "analysis_energy_lsd:fft", "analysis_energy_lsd:direct"
+    trace.count_plan(fft, 330, 1)
+    trace.count_plan(fft, 330, 1)
+    trace.count_plan(fft, 240, 2)
+    trace.count_plan(direct, 661, 16)
+    assert trace.PLANS == {fft + ":330x1": 2, fft + ":240x2": 1, direct + ":661x16": 1}
+    assert trace.BODIES == trace.FRAMES == {}
+    trace.reset()
+    assert trace.PLANS == {}
 
 
 def test_upload_counts_host_data_and_not_a_tensor_already_there():
